@@ -28,8 +28,26 @@ Phases, one line each (more for the per-shape kernel checks):
      predict_stereo on a batch of 4 uint8 375x1242 pairs: launch counts,
      shapes, finite values, agreement with the CPU run of the same
      weights, and ms/batch of the kernel path and the all-plain path;
-  8. stereo serving: 2 PNG pairs through serve.serve_requests.
-Then one JSON line of per-kernel results and, last, the ok line.
+  8. stereo serving: 2 PNG pairs through serve.serve_requests;
+  9. bf16 stereo kernels: correlation_gram (the banded-Gram tensor-core
+     kernel) at stereo_kitti2015_b16_bf16_v5e8's (16, 96, 288, 64) D=48,
+     _c128's C=128, latency_d96's (2, 96, 288, 64) D=24 and ragged shapes,
+     each against its plain version, timed in turns with its plain version
+     and with the correlation kernel on the same bf16 inputs; its ptxas
+     line; upsample_concat at config 5's three bf16 joins and soft_argmin
+     at its (16, 96, 288, 48) x4, against their plain versions;
+ 10. bf16 stereo end to end: load_weights(None, config 5, seed 0) +
+     predict_stereo on 16 uint8 375x1242 pairs on one card: launch counts
+     (1 correlation_gram, no correlation), device ms per forward (CUDA
+     events), host ms per batch, peak memory, a profile of the device
+     time by kernel, agreement with a CPU bf16 run of the same weights at
+     b2, the depth abs-rel of bf16 against the card's fp32 run of the same
+     weights (seeded, and with the cost head x20 so the readout is
+     peaked); latency_d96 at b2 once;
+ 11. bf16 stereo serving: 2 PNG pairs through serve.serve_requests.
+Then one JSON line of per-kernel results (with each kernel's bound on
+this card and, where one PyTorch call computes the same function, that
+call's time) and, last, the ok line.
 
 Fails (non-zero exit, no ok line) when CUDA is absent, the package is
 not beside this script, a kernel does not build, launch or agree, or any
@@ -100,6 +118,34 @@ def time_ms(fn, runs: int = RUNS, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+# H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s and operations/s
+# by type. The fp32 kernels run on the CUDA cores, the bf16 Gram on the
+# tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"fp32": 67e12, "bf16": 989e12}
+
+
+def bound_ms(nbytes: float, ops: float, kind: str):
+    """The least time the card could take, ms: the larger of the bytes over
+    the memory rate and the operations over the peak rate of ``kind``;
+    with the name of the one that binds."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / PEAK_OPS[kind] * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def add_bound(r: dict, nbytes: float, ops: float, kind: str) -> None:
+    """Adds one call's bound to a kernel's running sums."""
+    t, by = bound_ms(nbytes, ops, kind)
+    r["bound_ms"] = r.get("bound_ms", 0.0) + t
+    r.setdefault("bound_parts", {}).setdefault(by, 0.0)
+    r["bound_parts"][by] += t
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def phase_device() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -127,6 +173,14 @@ def phase_build(_build) -> None:
         spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", text)]
         ptxas = (f" | ptxas: {len(regs)} kernels, max {max(regs, default=0)} "
                  f"registers, {sum(spills)} bytes of spill stores")
+        at = text.find("correlation_gram_kernel")
+        report = text[at:at + 600]
+        fields = [re.search(pat, report) for pat in (
+            r"Used (\d+) registers", r"(\d+) bytes smem", r"(\d+) bytes spill stores")]
+        check(at >= 0 and all(fields), "no ptxas report for correlation_gram_kernel in nvcc.log")
+        ptxas += (f" | correlation_gram_kernel: {fields[0].group(1)} registers, "
+                  f"{fields[1].group(1)} bytes of shared memory, {fields[2].group(1)} "
+                  "bytes of spill stores")
     print(f"[2 build] {_build.build_seconds:.1f} s -> {path}{ptxas}")
 
 
@@ -156,6 +210,23 @@ def _conv_case(conv_block, rng, shape, act, border, dtype, out_dtype):
         tol = f"1e-2 x max|ref| = {1e-2 * ref_max:.3g}"
         ok = err.max().item() <= 1e-2 * ref_max
     return args, err.max().item(), tol, ok
+
+
+def _conv_library_ms(x, wt, bias) -> float:
+    """cuDNN's conv with bias (F.conv2d, channels-last) on the same input
+    with its reflect border padded beforehand: the convolution of the
+    conv3x3 kernel without its activation."""
+    import torch.nn.functional as F
+
+    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    xp = xp.contiguous(memory_format=torch.channels_last)
+    wc = wt.contiguous(memory_format=torch.channels_last)
+    return time_ms(lambda: F.conv2d(xp, wc, bias))
+
+
+def _upcat_bytes(x, skip) -> int:
+    """upsample_concat reads x and skip once and writes 4|x| + |skip|."""
+    return 5 * nbytes(x) + 2 * nbytes(skip)
 
 
 def _upcat_case(upcat, rng, shape, dtype):
@@ -200,6 +271,9 @@ SOFT_ARGMIN_EXTRA = [
     ((4, 64, 128, 48), 4.0, 1.0, "depth"),
 ]
 FB = 721.5377 * 0.54
+# soft_argmin's operations per cost element: subtract the max, exp, and
+# two multiply-adds (the sum and the weighted sum).
+SOFT_ARGMIN_OPS = 4
 # (join, H, W, C1, C2) of the aggregation at batch 4: x (4, H, W, C1)
 # joined with skip (4, 2H, 2W, C2).
 STEREO_UPCAT_SHAPES = [
@@ -213,7 +287,7 @@ def phase_kernels(conv_block, upcat) -> dict:
     rng = np.random.default_rng(0)
     lib = conv_block._build.lib()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    res = {"conv3x3": {"err": 0.0, "ms": 0.0, "plain_ms": 0.0},
+    res = {"conv3x3": {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0},
            "upsample_concat": {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}}
     for dtype in (torch.float32, torch.bfloat16):
         dt = "fp32" if dtype == torch.float32 else "bf16"
@@ -232,6 +306,10 @@ def phase_kernels(conv_block, upcat) -> dict:
                 r["err"] = max(r["err"], err)
                 r["ms"] += ms
                 r["plain_ms"] += plain_ms
+                x, wt, bias = args[:3]
+                out_bytes = h * w * cout * 4  # fp32 out, the head's too
+                add_bound(r, nbytes(x, wt, bias) + out_bytes, 2 * 9 * h * w * cin * cout, "fp32")
+                r["library_ms"] += _conv_library_ms(x, wt, bias)
         for shape, act, border, out_dtype in EXTRA_CONV:
             _, err, tol, ok = _conv_case(
                 conv_block, rng, shape, act, border, dtype, out_dtype)
@@ -254,11 +332,29 @@ def phase_kernels(conv_block, upcat) -> dict:
                 r["err"] = max(r["err"], err)
                 r["ms"] += ms
                 r["plain_ms"] += plain_ms
+                add_bound(r, _upcat_bytes(*args), 0, "fp32")
         for shape in EXTRA_UPCAT:
             _, err = _upcat_case(upcat, rng, shape, dtype)
             print(f"[3 upsample_concat {dt} extra] {shape}: max|err| {err:.3g} (exact)")
             check(err == 0.0, f"upsample_concat {dt} {shape} is not exact")
     return res
+
+
+def on_plain_path(_build, measure, *wrappers):
+    """measure() with each (module, name) kernel wrapper swapped for its
+    plain version, which must launch no kernel; the wrappers come back
+    afterwards."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in wrappers]
+    for mod, name, _ in saved:
+        setattr(mod, name, getattr(mod, name + "_plain"))
+    try:
+        _build.LAUNCHES.clear()
+        out = measure()
+        check(not _build.LAUNCHES, "plain path launched a kernel")
+        return out
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def _host_ms(predict, n: int) -> float:
@@ -316,18 +412,9 @@ def phase_end_to_end(sdt, _build, conv_block, upcat) -> dict:
         check(z_rel <= 1e-4, f"{tag} depth vs CPU max rel err {z_rel:.3g} > 1e-4")
 
     # Kernel path vs all-plain path on the card, in turns (ABBA).
-    kernel_fns = (conv_block.conv3x3, upcat.upsample_concat)
-
     def plain_ms() -> float:
-        conv_block.conv3x3 = conv_block.conv3x3_plain
-        upcat.upsample_concat = upcat.upsample_concat_plain
-        try:
-            _build.LAUNCHES.clear()
-            ms = _ms_per_frame(sdt, p, frame)
-            check(not _build.LAUNCHES, "plain path launched a kernel")
-            return ms
-        finally:
-            conv_block.conv3x3, upcat.upsample_concat = kernel_fns
+        return on_plain_path(_build, lambda: _ms_per_frame(sdt, p, frame),
+                             (conv_block, "conv3x3"), (upcat, "upsample_concat"))
 
     k1 = _ms_per_frame(sdt, p, frame)
     p1 = plain_ms()
@@ -380,6 +467,38 @@ def _soft_argmin_case(sa_ops, sa, rng, shape, scale, temperature, epilogue, dtyp
     return cost, err.max().item(), ok
 
 
+def _stereo_joins(upcat, rng, tag, b, shapes, dtype) -> dict:
+    """upsample_concat at an aggregation's three joins, each against its
+    plain version (exact), with both times summed."""
+    dt = "fp32" if dtype == torch.float32 else "bf16"
+    r = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    for name, h, w, c1, c2 in shapes:
+        args, err = _upcat_case(upcat, rng, (b, h, w, c1, c2), dtype)
+        ms = time_ms(lambda: upcat.upsample_concat(*args))
+        plain_ms = time_ms(lambda: upcat.upsample_concat_plain(*args))
+        print(f"[{tag} upsample_concat {dt}] {name} b{b} {h}x{w} {c1}+{c2}: "
+              f"max|err| {err:.3g} (exact) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        check(err == 0.0, f"upsample_concat {dt} {name} is not exact")
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        add_bound(r, _upcat_bytes(*args), 0, dt)
+    return r
+
+
+def _soft_argmin_main(sa_ops, sa, rng, tag, shape, scale) -> dict:
+    """soft_argmin at a stereo path's readout shape against its plain
+    version, with both times."""
+    cost, err, ok = _soft_argmin_case(sa_ops, sa, rng, shape, scale, 1.0, "none")
+    ms = time_ms(lambda: sa.soft_argmin(cost, scale=scale))
+    plain_ms = time_ms(lambda: sa.soft_argmin_plain(cost, scale=scale))
+    print(f"[{tag} soft_argmin fp32] {shape} x{scale:g}: max|err| {err:.3g} "
+          f"(atol 1e-5 x scale + rtol 1e-5) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+    check(ok, f"soft_argmin {shape} disagrees with its plain version")
+    r = {"err": err, "ms": ms, "plain_ms": plain_ms}
+    add_bound(r, nbytes(cost) + cost[..., 0].numel() * 4, SOFT_ARGMIN_OPS * cost.numel(), "fp32")
+    return r
+
+
 def phase_stereo_kernels(corr, sa_ops, sa, upcat) -> dict:
     rng = np.random.default_rng(2)
     res = {}
@@ -392,20 +511,15 @@ def phase_stereo_kernels(corr, sa_ops, sa, upcat) -> dict:
               f"{err:.3g} ({tol}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
         check(ok, f"correlation {dt} {CORR_MAIN} disagrees with its plain version")
         if dtype == torch.float32:
-            res["correlation"] = {"err": err, "ms": ms, "plain_ms": plain_ms}
+            r = res["correlation"] = {"err": err, "ms": ms, "plain_ms": plain_ms}
+            b, h, w, c, d = CORR_MAIN
+            add_bound(r, nbytes(*args[:2]) + b * h * w * d * 4, 2 * b * h * w * d * c, "fp32")
         for shape in CORR_EXTRA:
             _, err, tol, ok = _corr_case(corr, rng, shape, dtype)
             print(f"[6 correlation {dt} extra] {shape[:4]} D={shape[4]}: max|err| {err:.3g} ({tol})")
             check(ok, f"correlation {dt} {shape} disagrees with its plain version")
 
-    shape, scale = SOFT_ARGMIN_MAIN
-    cost, err, ok = _soft_argmin_case(sa_ops, sa, rng, shape, scale, 1.0, "none")
-    ms = time_ms(lambda: sa.soft_argmin(cost, scale=scale))
-    plain_ms = time_ms(lambda: sa.soft_argmin_plain(cost, scale=scale))
-    print(f"[6 soft_argmin fp32] {shape} x{scale:g}: max|err| {err:.3g} "
-          f"(atol 1e-5 x scale + rtol 1e-5) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-    check(ok, f"soft_argmin {shape} disagrees with its plain version")
-    res["soft_argmin"] = {"err": err, "ms": ms, "plain_ms": plain_ms}
+    res["soft_argmin"] = _soft_argmin_main(sa_ops, sa, rng, 6, *SOFT_ARGMIN_MAIN)
     for shape, scale, temperature, epilogue in SOFT_ARGMIN_EXTRA:
         _, err, ok = _soft_argmin_case(sa_ops, sa, rng, shape, scale, temperature, epilogue)
         print(f"[6 soft_argmin fp32 extra] {shape} x{scale:g} temperature {temperature:g} "
@@ -416,17 +530,8 @@ def phase_stereo_kernels(corr, sa_ops, sa, upcat) -> dict:
     print(f"[6 soft_argmin bf16 cost extra] {shape} x{scale:g}: max|err| {err:.3g}")
     check(ok, f"soft_argmin bf16 {shape} disagrees")
 
-    r = res["upsample_concat"] = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-    for name, h, w, c1, c2 in STEREO_UPCAT_SHAPES:
-        args, err = _upcat_case(upcat, rng, (STEREO_B, h, w, c1, c2), torch.float32)
-        ms = time_ms(lambda: upcat.upsample_concat(*args))
-        plain_ms = time_ms(lambda: upcat.upsample_concat_plain(*args))
-        print(f"[6 upsample_concat fp32] {name} b{STEREO_B} {h}x{w} {c1}+{c2}: "
-              f"max|err| {err:.3g} (exact) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-        check(err == 0.0, f"upsample_concat {name} is not exact")
-        r["err"] = max(r["err"], err)
-        r["ms"] += ms
-        r["plain_ms"] += plain_ms
+    res["upsample_concat"] = _stereo_joins(
+        upcat, rng, 6, STEREO_B, STEREO_UPCAT_SHAPES, torch.float32)
     return res
 
 
@@ -466,19 +571,10 @@ def phase_stereo_end_to_end(sdt, _build, corr, sa, upcat) -> dict:
     check(d_err <= STEREO_DISP_ATOL, f"stereo disp vs CPU max|err| {d_err:.3g} px > {STEREO_DISP_ATOL}")
     check(z_rel <= 1e-4, f"stereo depth vs CPU max rel err {z_rel:.3g} > 1e-4")
 
-    kernel_fns = (corr.correlation, sa.soft_argmin, upcat.upsample_concat)
-
     def plain_ms() -> float:
-        corr.correlation = corr.correlation_plain
-        sa.soft_argmin = sa.soft_argmin_plain
-        upcat.upsample_concat = upcat.upsample_concat_plain
-        try:
-            _build.LAUNCHES.clear()
-            ms = _ms_per_batch(sdt, p, left, right)
-            check(not _build.LAUNCHES, "plain path launched a kernel")
-            return ms
-        finally:
-            corr.correlation, sa.soft_argmin, upcat.upsample_concat = kernel_fns
+        return on_plain_path(_build, lambda: _ms_per_batch(sdt, p, left, right),
+                             (corr, "correlation"), (sa, "soft_argmin"),
+                             (upcat, "upsample_concat"))
 
     k1 = _ms_per_batch(sdt, p, left, right)
     p1 = plain_ms()
@@ -493,11 +589,11 @@ def phase_stereo_end_to_end(sdt, _build, corr, sa, upcat) -> dict:
     return launches
 
 
-def phase_stereo_serve(sdt, serve) -> None:
+def phase_stereo_serve(sdt, serve, tag, config, seed) -> None:
     from PIL import Image
 
-    left, right = _stereo_pairs(2, 1)
-    p = sdt.load_weights(None, STEREO_CONFIG, seed=0, device="cuda")
+    left, right = _stereo_pairs(2, seed)
+    p = sdt.load_weights(None, config, seed=0, device="cuda")
     with tempfile.TemporaryDirectory() as tmp:
         reqs = []
         for i in range(2):
@@ -512,8 +608,260 @@ def phase_stereo_serve(sdt, serve) -> None:
             check("error" not in r, f"serve error {r}")
             check(r["shape"] == list(SRC_HW), f"serve shape {r}")
             check(os.path.exists(r["output"]), f"missing artifact {r}")
-    print(f"[8 stereo serve] {len(resps)}/2 in-order responses of shape "
-          f"{resps[0]['shape']}, ms {[r['ms'] for r in resps]}")
+    print(f"[{tag} stereo serve] {config}: {len(resps)}/2 in-order responses of "
+          f"shape {resps[0]['shape']}, ms {[r['ms'] for r in resps]}")
+
+
+BF16_CONFIG = "stereo_kitti2015_b16_bf16_v5e8"
+BF16_B = 16
+D96_CONFIG = "stereo_kitti2015_latency_d96"
+D96_B = 2
+# (name, (B, H, W, C, D)) of the banded-Gram correlation on the bf16
+# presets' /4 feature grids: config 5, its C = 128 variant, latency_d96.
+GRAM_MAIN = [
+    ("config5", (16, 96, 288, 64, 48)),
+    ("c128", (16, 96, 288, 128, 48)),
+    ("d96", (2, 96, 288, 64, 24)),
+]
+# A ragged W tile with C = 24 (not a multiple of 16), D > W, D = 100 (two
+# D tiles), C = 5 (the scalar staging path) with D = 70, W % 64 == 0 at
+# D = 64, odd B*H.
+GRAM_EXTRA = [(2, 3, 37, 24, 12), (1, 2, 8, 16, 12), (1, 3, 130, 16, 100),
+              (1, 2, 37, 5, 70), (2, 4, 64, 64, 64), (1, 3, 70, 64, 48)]
+# (join, H, W, C1, C2) of config 5's aggregation at b16, bf16.
+BF16_UPCAT_SHAPES = [
+    ("dec2", 12, 36, 160, 128),
+    ("dec1", 24, 72, 128, 96),
+    ("dec0", 48, 144, 96, 64),
+]
+BF16_SOFT_ARGMIN = ((BF16_B, 96, 288, 48), 4.0)
+# Card vs a CPU run of the same bf16 weights at 375x1242, about twice the
+# errors measured on an NVIDIA H100 80GB HBM3 at 700 W: disparity 3.24e-3
+# px, depth 3.21e-5 relative. The bf16 convs round at other places in
+# cuDNN and in oneDNN; the random-weight readout sits near 101 px.
+BF16_DISP_ATOL = 7e-3
+BF16_DEPTH_RTOL = 7e-5
+# Depth abs-rel of bf16 against fp32 on the same weights (BASELINE.json:5).
+ABS_REL_BUDGET = 1e-3
+
+
+def _bf16_spacing(x: torch.Tensor) -> torch.Tensor:
+    """The gap between neighbouring bf16 values at |x| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -120))) - 7)
+
+
+def _gram_case(gram, gen, shape):
+    """One correlation_gram call against its plain version on the card. Both
+    round an fp32 sum, taken in another order, to bf16 once, so they may
+    sit one bf16 spacing apart; atol 1e-6 for sums that cancel."""
+    b, h, w, c, d = shape
+    fl = torch.randn((b, h, w, c), generator=gen, device="cuda").bfloat16()
+    fr = torch.randn((b, h, w, c), generator=gen, device="cuda").bfloat16()
+    got = gram.correlation_gram(fl, fr, d)
+    ref = gram.correlation_gram_plain(fl, fr, d)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.bfloat16 and tuple(got.shape) == (b, h, w, d),
+          f"correlation_gram {shape} {got.dtype} {tuple(got.shape)}")
+    err = (got.float() - ref.float()).abs()
+    ok = bool((err <= _bf16_spacing(ref.float()) + 1e-6).all())
+    return (fl, fr, d), err.max().item(), ok
+
+
+def phase_bf16_kernels(gram, corr, sa_ops, sa, upcat) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    res = {}
+    for name, shape in GRAM_MAIN:
+        args, err, ok = _gram_case(gram, gen, shape)
+        fns = {"kernel": gram.correlation_gram, "correlation kernel": corr.correlation,
+               "plain": gram.correlation_gram_plain}
+        times = {k: [] for k in fns}
+        for k in ("kernel", "correlation kernel", "plain", "plain", "correlation kernel", "kernel"):
+            times[k].append(time_ms(lambda: fns[k](*args)))
+        b, h, w, c, d = shape
+        r = {"err": err, "ms": float(np.mean(times["kernel"])),
+             "plain_ms": float(np.mean(times["plain"]))}
+        add_bound(r, nbytes(*args[:2]) + b * h * w * d * 2, 2 * b * h * w * d * c, "bf16")
+        by = max(r["bound_parts"], key=r["bound_parts"].get)
+        print(f"[9 correlation_gram bf16] {name} {shape[:4]} D={d}: max|err| {err:.3g} "
+              f"(one bf16 spacing + 1e-6); ms in turns: kernel "
+              + ", ".join(f"{t:.4f}" for t in times["kernel"])
+              + " | correlation kernel " + ", ".join(f"{t:.4f}" for t in times["correlation kernel"])
+              + " | plain " + ", ".join(f"{t:.4f}" for t in times["plain"])
+              + f"; bound {r['bound_ms']:.4f} ms ({by})")
+        check(ok, f"correlation_gram {name} {shape} disagrees with its plain version")
+        if name == "config5":
+            res["correlation_gram"] = r
+    for shape in GRAM_EXTRA:
+        _, err, ok = _gram_case(gram, gen, shape)
+        print(f"[9 correlation_gram bf16 extra] {shape[:4]} D={shape[4]}: max|err| {err:.3g}")
+        check(ok, f"correlation_gram {shape} disagrees with its plain version")
+
+    rng = np.random.default_rng(4)
+    res["upsample_concat"] = _stereo_joins(
+        upcat, rng, 9, BF16_B, BF16_UPCAT_SHAPES, torch.bfloat16)
+    res["soft_argmin"] = _soft_argmin_main(sa_ops, sa, rng, 9, *BF16_SOFT_ARGMIN)
+    return res
+
+
+def _abs_rel(depth: np.ndarray, ref: np.ndarray) -> float:
+    return float(np.mean(np.abs(depth - ref) / ref))
+
+
+def _device_ms(p, lt, rt, n: int = 10) -> float:
+    """Device ms per stereo_forward: CUDA events around n forwards on the
+    card's own inputs, after one to warm up."""
+    p.stereo_forward(lt, rt)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        p.stereo_forward(lt, rt)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _profile(p, lt, rt, n: int = 3) -> str:
+    """Device time by kernel over n forwards (torch.profiler): the kernel
+    time per forward, its busy share of the span from the first kernel's
+    start to the last one's end, and the largest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    p.stereo_forward(lt, rt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            p.stereo_forward(lt, rt)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return "profiler: no device time recorded (not measured)"
+    by_name: dict = {}
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s_, e_, name in spans:
+        t, k = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + (e_ - s_), k + 1)
+        if s_ > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    busy += cur_e - cur_s
+    total = sum(t for t, _ in by_name.values())
+    span = max(e_ for _, e_, _ in spans) - spans[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]
+
+    def self_device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    ops = sorted((e for e in prof.key_averages() if e.key.startswith("aten::")),
+                 key=lambda e: -self_device_us(e))[:10]
+    return (f"profiler over {n} forwards: kernel time {total / n / 1e3:.3f} ms per forward in "
+            f"{len(spans) / n:.0f} launches, busy {busy / span:.3f} of the kernels' span; "
+            "largest kernels (ms per forward, launches per forward): "
+            + "; ".join(f"{name[:90]} {t / n / 1e3:.4f} ({k / n:g})" for name, (t, k) in top)
+            + " || by op (self device ms per forward, calls per forward): "
+            + "; ".join(f"{e.key} {self_device_us(e) / n / 1e3:.4f} ({e.count / n:g})"
+                        for e in ops))
+
+
+def phase_bf16_end_to_end(sdt, _build, gram, sa, upcat) -> dict:
+    import dataclasses
+
+    from scenedepthestimation_tpu_torch.models import stereo as stereo_net
+    from scenedepthestimation_tpu_torch.utils import weights as weights_io
+
+    left, right = _stereo_pairs(BF16_B, 0)
+    p = sdt.load_weights(None, BF16_CONFIG, seed=0, device="cuda")
+    check(p.dtype == torch.bfloat16, f"{BF16_CONFIG} predictor runs {p.dtype}")
+    sdt.predict_stereo(p, left, right)  # warm-up: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+
+    _build.LAUNCHES.clear()
+    out = sdt.predict_stereo(p, left, right)
+    launches = dict(_build.LAUNCHES)
+    want = {"correlation_gram": 1, "soft_argmin": 1, "upsample_concat": 3}
+    check(launches == want, f"expected {want} launches per forward (no correlation), got {launches}")
+    for k in ("disp", "depth"):
+        check(out[k].shape == (BF16_B,) + SRC_HW, f"bf16 stereo {k} shape {out[k].shape}")
+        check(bool(np.isfinite(out[k]).all()), f"bf16 stereo {k} not finite")
+
+    lt, rt = torch.from_numpy(left).cuda(), torch.from_numpy(right).cuda()
+    def plain_device_ms() -> float:
+        return on_plain_path(_build, lambda: _device_ms(p, lt, rt),
+                             (gram, "correlation_gram"), (sa, "soft_argmin"),
+                             (upcat, "upsample_concat"))
+
+    dk1 = _device_ms(p, lt, rt)
+    dp1 = plain_device_ms()
+    dp2 = plain_device_ms()
+    dk2 = _device_ms(p, lt, rt)
+    hk1 = _host_ms(lambda: sdt.predict_stereo(p, left, right), 5)
+    hk2 = _host_ms(lambda: sdt.predict_stereo(p, left, right), 5)
+    torch.cuda.reset_peak_memory_stats()
+    p.stereo_forward(lt, rt)
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    prof = _profile(p, lt, rt)
+
+    # The same bf16 weights through the plain versions on the CPU, at b2.
+    t0 = time.perf_counter()
+    ref = sdt.predict_stereo(sdt.load_weights(None, BF16_CONFIG, seed=0, device="cpu"),
+                             left[:2], right[:2])
+    cpu_s = time.perf_counter() - t0
+    d_err = float(np.abs(out["disp"][:2] - ref["disp"]).max())
+    z_rel = float((np.abs(out["depth"][:2] - ref["depth"]) / np.abs(ref["depth"])).max())
+    check(d_err <= BF16_DISP_ATOL, f"bf16 disp vs CPU max|err| {d_err:.3g} px > {BF16_DISP_ATOL}")
+    check(z_rel <= BF16_DEPTH_RTOL, f"bf16 depth vs CPU max rel {z_rel:.3g} > {BF16_DEPTH_RTOL}")
+
+    # bf16 against the card's fp32 run of the same weights; then with the
+    # cost head x20 (in fp32, before either cast) so the readout is peaked.
+    cfg32 = dataclasses.replace(sdt.configs.get(BF16_CONFIG), dtype="float32")
+    p32 = sdt.load_weights(None, cfg32, seed=0, device="cuda")
+    out32 = sdt.predict_stereo(p32, left, right)
+    rel = _abs_rel(out["depth"], out32["depth"])
+    check(rel <= ABS_REL_BUDGET, f"bf16 vs fp32 depth abs-rel {rel:.3g} > {ABS_REL_BUDGET}")
+    state = {k: v.detach().float().cpu().contiguous() for k, v in p32.model.state_dict().items()}
+    for k in ("aggregation.cost_head.weight", "aggregation.cost_head.bias"):
+        state[k] = state[k] * 20
+    peaked = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(cfg32, dtype=dtype)
+        model = stereo_net.StereoNet(cfg.stereo)
+        weights_io.load_state(model, state)
+        peaked[dtype] = sdt.predict_stereo(sdt.Predictor(cfg, model, "cuda"), left, right)
+    rel_peaked = _abs_rel(peaked["bfloat16"]["depth"], peaked["float32"]["depth"])
+    del p32, peaked
+    torch.cuda.empty_cache()
+
+    print(f"[10 bf16 stereo end to end] {BF16_CONFIG} b{BF16_B} {SRC_HW[0]}x{SRC_HW[1]} uint8 "
+          f"pairs -> disparity, depth on one card: launches {launches}; device ms/forward "
+          f"kernel path {dk1:.3f}, {dk2:.3f} | plain path {dp1:.3f}, {dp2:.3f} (CUDA events, "
+          f"inputs on the card); host ms/batch {hk1:.3f}, {hk2:.3f} (H2D + D2H included); "
+          f"peak memory {peak_mib:.0f} MiB; vs CPU bf16 b2 ({cpu_s:.1f} s): disp max|err| "
+          f"{d_err:.3g} px (atol {BF16_DISP_ATOL:g}), depth max rel {z_rel:.3g} (rtol "
+          f"{BF16_DEPTH_RTOL:g}); depth abs-rel bf16 vs fp32 {rel:.3g} (<= {ABS_REL_BUDGET:g}), "
+          f"cost head x20 {rel_peaked:.3g}; disp range [{out['disp'].min():.2f}, "
+          f"{out['disp'].max():.2f}] px")
+    print(f"[10 bf16 stereo profile] {prof}")
+
+    p96 = sdt.load_weights(None, D96_CONFIG, seed=0, device="cuda")
+    sdt.predict_stereo(p96, left[:D96_B], right[:D96_B])
+    _build.LAUNCHES.clear()
+    out96 = sdt.predict_stereo(p96, left[:D96_B], right[:D96_B])
+    launches96 = dict(_build.LAUNCHES)
+    check(launches96 == want, f"{D96_CONFIG}: expected {want} launches, got {launches96}")
+    for k in ("disp", "depth"):
+        check(out96[k].shape == (D96_B,) + SRC_HW, f"d96 {k} shape {out96[k].shape}")
+        check(bool(np.isfinite(out96[k]).all()), f"d96 {k} not finite")
+    d96_ms = _device_ms(p96, lt[:D96_B], rt[:D96_B])
+    print(f"[10 bf16 stereo end to end] {D96_CONFIG} b{D96_B}: launches {launches96}; device "
+          f"ms/forward {d96_ms:.3f}; disp range [{out96['disp'].min():.2f}, "
+          f"{out96['disp'].max():.2f}] px")
+    return launches
 
 
 def phase_serve(sdt, serve) -> None:
@@ -544,6 +892,7 @@ def main() -> int:
     from scenedepthestimation_tpu_torch.ops import soft_argmin as sa_ops
     from scenedepthestimation_tpu_torch.ops.cuda import _build, conv_block
     from scenedepthestimation_tpu_torch.ops.cuda import correlation as corr
+    from scenedepthestimation_tpu_torch.ops.cuda import correlation_gram as gram
     from scenedepthestimation_tpu_torch.ops.cuda import soft_argmin as sa
     from scenedepthestimation_tpu_torch.ops.cuda import upsample_concat as upcat
 
@@ -554,47 +903,69 @@ def main() -> int:
     phase_serve(sdt, serve)
     stereo_res = phase_stereo_kernels(corr, sa_ops, sa, upcat)
     stereo_launches = phase_stereo_end_to_end(sdt, _build, corr, sa, upcat)
-    phase_stereo_serve(sdt, serve)
+    phase_stereo_serve(sdt, serve, 8, STEREO_CONFIG, 1)
+    bf16_res = phase_bf16_kernels(gram, corr, sa_ops, sa, upcat)
+    bf16_launches = phase_bf16_end_to_end(sdt, _build, gram, sa, upcat)
+    phase_stereo_serve(sdt, serve, 11, BF16_CONFIG, 2)
 
-    # ms / plain_ms: fp32 medians summed over the kernel's shapes on its
-    # path, i.e. its device time per forward; max_abs_err over those shapes.
-    # upsample_concat runs on both paths: its numbers sum the 4 joins of
-    # the mono b1 forward and the 3 joins of the stereo b4 forward.
-    up_mono, up_stereo = res["upsample_concat"], stereo_res["upsample_concat"]
-    res["upsample_concat"] = {
-        "err": max(up_mono["err"], up_stereo["err"]),
-        "ms": up_mono["ms"] + up_stereo["ms"],
-        "plain_ms": up_mono["plain_ms"] + up_stereo["plain_ms"],
-    }
+    # Each entry covers the main paths that run the kernel: mono b1 (fp32),
+    # stereo b4 (fp32) and config-5 stereo b16 (bf16). ms / plain_ms /
+    # bound_ms are summed over the kernel's calls on those paths, i.e. its
+    # device time per forward of each path, added up; launches are the
+    # counts of those forwards; max_abs_err is over the same shapes.
+    def merged(*parts):
+        out = {"err": max(r["err"] for r in parts), "ms": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0, "bound_parts": {}}
+        for r in parts:
+            for k in ("ms", "plain_ms", "bound_ms"):
+                out[k] += r[k]
+            for by, t in r["bound_parts"].items():
+                out["bound_parts"][by] = out["bound_parts"].get(by, 0.0) + t
+        return out
+
+    res["upsample_concat"] = merged(res["upsample_concat"], stereo_res["upsample_concat"],
+                                    bf16_res["upsample_concat"])
     res["correlation"] = stereo_res["correlation"]
-    res["soft_argmin"] = stereo_res["soft_argmin"]
+    res["correlation_gram"] = bf16_res["correlation_gram"]
+    res["soft_argmin"] = merged(stereo_res["soft_argmin"], bf16_res["soft_argmin"])
     launches = {
         "conv3x3": launches["conv3x3"],
-        "upsample_concat": launches["upsample_concat"] + stereo_launches["upsample_concat"],
-        "correlation": stereo_launches["correlation"],
-        "soft_argmin": stereo_launches["soft_argmin"],
+        "upsample_concat": launches["upsample_concat"] + stereo_launches["upsample_concat"]
+        + bf16_launches["upsample_concat"],
+        "correlation": stereo_launches["correlation"] + bf16_launches.get("correlation", 0),
+        "correlation_gram": bf16_launches["correlation_gram"],
+        "soft_argmin": stereo_launches["soft_argmin"] + bf16_launches["soft_argmin"],
     }
     meta = {
         "conv3x3": ("scenedepthestimation_tpu_torch/csrc/conv_block.cu",
                     "scenedepthestimation_tpu/ops/pallas/conv_block.py:167",
-                    f"{CONFIG} b1 decoder, 11 shapes"),
+                    f"{CONFIG} b1 decoder, 11 shapes, fp32"),
         "upsample_concat": ("scenedepthestimation_tpu_torch/csrc/upsample_concat.cu",
                             "scenedepthestimation_tpu/ops/pallas/upsample_concat.py:37",
-                            f"{CONFIG} b1 decoder 4 joins + {STEREO_CONFIG} b4 "
-                            "aggregation 3 joins"),
+                            f"{CONFIG} b1 decoder 4 joins fp32 + {STEREO_CONFIG} b4 "
+                            f"aggregation 3 joins fp32 + {BF16_CONFIG} b16 aggregation "
+                            "3 joins bf16"),
         "correlation": ("scenedepthestimation_tpu_torch/csrc/correlation.cu",
                         "scenedepthestimation_tpu/ops/pallas/correlation.py:113",
-                        f"{STEREO_CONFIG} b4 (4, 64, 128, 64) D=48"),
+                        f"{STEREO_CONFIG} b4 (4, 64, 128, 64) D=48 fp32"),
+        "correlation_gram": ("scenedepthestimation_tpu_torch/csrc/correlation_gram.cu",
+                             "scenedepthestimation_tpu/ops/pallas/correlation_v2.py:80 + "
+                             "scenedepthestimation_tpu/ops/pallas/correlation_v3.py:69",
+                             f"{BF16_CONFIG} b16 (16, 96, 288, 64) D=48 bf16"),
         "soft_argmin": ("scenedepthestimation_tpu_torch/csrc/soft_argmin.cu",
                         "scenedepthestimation_tpu/ops/pallas/soft_argmin.py:41",
-                        f"{STEREO_CONFIG} b4 (4, 64, 128, 48) x4"),
+                        f"{STEREO_CONFIG} b4 (4, 64, 128, 48) x4 + {BF16_CONFIG} b16 "
+                        "(16, 96, 288, 48) x4, fp32 cost"),
     }
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": res[name]["err"],
-         "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"], "shapes": shapes}
-        for name, (src, rep, shapes) in meta.items()
-    ]
+    kernels = []
+    for name, (src, rep, shapes) in meta.items():
+        r = res[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": max(r["bound_parts"], key=r["bound_parts"].get),
+            "library_ms": r.get("library_ms"), "shapes": shapes})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,11 @@
 
 Ported: mono inference (preprocess -> ResNet encoder -> U-Net decoder ->
 sigmoid disparity head -> disp->depth), with the decoder's convs and skip
-joins in hand-written CUDA kernels, and fp32 stereo inference (feature
-tower -> correlation cost volume -> aggregation U-Net -> soft-argmin ->
-refinement -> disparity and depth), with the correlation, the soft-argmin
-and the aggregation's skip joins in hand-written CUDA kernels. The kernels
+joins in hand-written CUDA kernels, and fp32 and bf16 stereo inference
+(feature tower -> correlation cost volume -> aggregation U-Net ->
+soft-argmin -> refinement -> disparity and depth), with the correlation
+(fp32; a tensor-core banded Gram for bf16), the soft-argmin and the
+aggregation's skip joins in hand-written CUDA kernels. The kernels
 (``csrc/``) are built with ``nvcc`` at first use. The package imports
 ``torch`` and never ``jax``; the JAX package beside it is the reference
 the port's tests hold it against.

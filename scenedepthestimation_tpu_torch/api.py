@@ -14,8 +14,8 @@ end-to-end program of its pipeline:
 
 The host only hands in decoded uint8 frames and takes depth maps out.
 PyTorch runs eagerly, so there is no program cache to keep. bf16 stereo
-presets raise ``NotImplementedError``: their correlation is the JAX
-package's banded-Gram formulation, not ported yet.
+presets run the network in bf16 with the banded-Gram correlation kernel
+and read the soft-argmin out in fp32, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -32,11 +32,6 @@ from scenedepthestimation_tpu_torch.models import monodepth, stereo
 from scenedepthestimation_tpu_torch.ops.disp_to_depth import depth_from_disparity, disp_to_depth
 from scenedepthestimation_tpu_torch.ops.preprocess import preprocess, resize_bilinear
 from scenedepthestimation_tpu_torch.utils import weights as weights_io
-
-_BF16_STEREO = (
-    "bf16 stereo is not ported yet (ROADMAP.md Queue 1 item 10: the "
-    "banded-Gram correlation)"
-)
 
 
 def compute_dtype(cfg: RunConfig) -> torch.dtype:
@@ -155,8 +150,6 @@ def load_weights(
     raises when CUDA is not available: nothing falls back to the CPU.
     """
     cfg = configs.get(config)
-    if cfg.pipeline == "stereo" and cfg.dtype != "float32":
-        raise NotImplementedError(_BF16_STEREO)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")

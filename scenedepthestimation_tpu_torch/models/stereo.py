@@ -3,7 +3,9 @@
 
 * Siamese feature tower, stride 4, over the pair folded into the batch
   (``(B, 2, ...) -> (2B, ...)`` interleaved, as the JAX model does).
-* 1-D correlation cost volume (``ops/correlation``, the correlation kernel).
+* 1-D correlation cost volume in the features' dtype (``ops/correlation``:
+  the correlation kernel for fp32 features, the banded-Gram kernel for
+  bf16).
 * Cost aggregation: a 2-D conv U-Net over cost ++ left features, whose
   three skip joins go through the upsample_concat kernel.
 * Soft-argmin readout in fp32 x ``feat_stride`` (the soft_argmin kernel),
@@ -163,7 +165,8 @@ class StereoNet(nn.Module):
         cfg = self.cfg
         f_l, f_r = split_pair(self.tower(pair))
         cost = correlation1d(f_l, f_r, cfg.corr_disp)  # (B, H/4, W/4, D)
-        refined = self.aggregation(torch.cat([cost.to(f_l.dtype), f_l], dim=-1))
+        refined = self.aggregation(torch.cat([cost, f_l], dim=-1))
+        # The readout runs in fp32 whatever the compute dtype, as in JAX.
         disp_q = soft_argmin(
             refined.float(), cfg.softargmin_temperature, scale=float(cfg.feat_stride)
         )

@@ -13,21 +13,17 @@ from __future__ import annotations
 import torch
 
 from scenedepthestimation_tpu_torch.ops.cuda import correlation as _corr
+from scenedepthestimation_tpu_torch.ops.cuda import correlation_gram as _gram
 
 
 def correlation1d(
     f_left: torch.Tensor, f_right: torch.Tensor, max_disp: int
 ) -> torch.Tensor:
-    """Build the (B, H, W, D) cost volume, D = max_disp, from float32
-    features: the correlation kernel on CUDA (the JAX package's choice for
-    fp32 on a TPU), its plain shift-and-reduce version on the CPU.
-
-    bf16 features raise: the JAX package sends them through the banded-Gram
-    formulation (``_correlation_gram``), which is not ported yet.
-    """
-    if f_left.dtype != torch.float32:
-        raise NotImplementedError(
-            f"correlation1d of {f_left.dtype} features: bf16 stereo (the "
-            "banded-Gram correlation) is not ported yet (ROADMAP.md Queue 1)"
-        )
+    """Build the (B, H, W, D) cost volume, D = max_disp, in the features'
+    dtype. The dtype decides, as in the JAX package: bf16 features take
+    the banded-Gram kernel (the JAX package's ``_correlation_gram``), any
+    other the correlation kernel (its fp32 Pallas kernel). On the CPU each
+    takes its plain version."""
+    if f_left.dtype == torch.bfloat16:
+        return _gram.correlation_gram(f_left, f_right, max_disp)
     return _corr.correlation(f_left, f_right, max_disp)

@@ -10,9 +10,9 @@ reuses the library.
 
 There is no fallback: a missing ``nvcc``, a failed build or a refused
 launch raises. The wrappers that launch kernels (``conv_block``,
-``upsample_concat``, ``correlation``, ``soft_argmin``) add one to
-:data:`LAUNCHES` per launch, so a run can show that its main path went
-through them.
+``upsample_concat``, ``correlation``, ``correlation_gram``,
+``soft_argmin``) add one to :data:`LAUNCHES` per launch, so a run can
+show that its main path went through them.
 """
 
 from __future__ import annotations
@@ -59,6 +59,8 @@ _SIGNATURES = {
     "sde_upsample_concat": (_P, _P, _P) + (_I,) * 7 + (_P,),
     # fl, fr, out, rows, W, C, D, dtype, device, stream
     "sde_correlation": (_P, _P, _P) + (_I,) * 6 + (_P,),
+    # fl, fr, out, rows, W, C, D, device, stream
+    "sde_correlation_gram": (_P, _P, _P) + (_I,) * 5 + (_P,),
     # cost, out, n, D, dtype, scale, depth, fb, device, stream
     "sde_soft_argmin": (_P, _P, _L, _I, _I, _F, _I, _F, _I, _P),
 }

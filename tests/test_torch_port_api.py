@@ -143,11 +143,16 @@ def test_load_weights_seeded_and_no_cuda_fallback(monkeypatch):
 
 
 def test_stereo_is_not_ported():
-    """fp32 stereo is ported; bf16 stereo (its banded-Gram correlation) is
-    not, and its presets raise rather than fall back."""
+    """Stereo is ported in fp32 and now in bf16 (its banded-Gram
+    correlation): config 5's preset loads as a bf16 stereo predictor, and
+    on CUDA it raises without a card rather than fall back."""
     assert api.load_weights(None, "stereo_256x512_b4", device="cpu").cfg.pipeline == "stereo"
-    with pytest.raises(NotImplementedError, match="bf16 stereo"):
-        api.load_weights(None, "stereo_kitti2015_b16_bf16_v5e8", device="cpu")
+    pred = api.load_weights(None, "stereo_kitti2015_b16_bf16_v5e8", device="cpu")
+    assert pred.cfg.pipeline == "stereo" and pred.dtype == torch.bfloat16
+    assert pred.cfg.stereo.feat_channels == 64 and pred.cfg.stereo.corr_disp == 48
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            api.load_weights(None, "stereo_kitti2015_b16_bf16_v5e8", device="cuda")
 
 
 def test_import_leaves_jax_out():
@@ -158,6 +163,7 @@ def test_import_leaves_jax_out():
         "import scenedepthestimation_tpu_torch.ops.cuda.conv_block\n"
         "import scenedepthestimation_tpu_torch.ops.cuda.upsample_concat\n"
         "import scenedepthestimation_tpu_torch.ops.cuda.correlation\n"
+        "import scenedepthestimation_tpu_torch.ops.cuda.correlation_gram\n"
         "import scenedepthestimation_tpu_torch.ops.cuda.soft_argmin\n"
         "import scenedepthestimation_tpu_torch.models.stereo\n"
         "import scenedepthestimation_tpu_torch.utils.weights\n"

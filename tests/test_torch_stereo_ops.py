@@ -13,8 +13,10 @@ import pytest
 import torch
 
 from scenedepthestimation_tpu.ops import upsample as jax_up
-from scenedepthestimation_tpu.ops.correlation import _correlation_jnp
+from scenedepthestimation_tpu.ops.correlation import _correlation_gram, _correlation_jnp
 from scenedepthestimation_tpu.ops.pallas.correlation import correlation_pallas
+from scenedepthestimation_tpu.ops.pallas.correlation_v2 import correlation_pallas_v2
+from scenedepthestimation_tpu.ops.pallas.correlation_v3 import correlation_pallas_v3
 from scenedepthestimation_tpu.ops.pallas.soft_argmin import soft_argmin_pallas
 from scenedepthestimation_tpu.ops.soft_argmin import _soft_argmin_jnp
 from scenedepthestimation_tpu_torch.ops import correlation as port_corr
@@ -22,6 +24,7 @@ from scenedepthestimation_tpu_torch.ops import soft_argmin as port_sa
 from scenedepthestimation_tpu_torch.ops import upsample as port_up
 from scenedepthestimation_tpu_torch.ops.cuda import _build
 from scenedepthestimation_tpu_torch.ops.cuda import correlation as corr_kernel
+from scenedepthestimation_tpu_torch.ops.cuda import correlation_gram as gram_kernel
 from scenedepthestimation_tpu_torch.ops.cuda import soft_argmin as sa_kernel
 
 
@@ -104,8 +107,107 @@ def test_correlation_rejects_bad_input():
         corr_kernel.correlation(x, x, 0)
     with pytest.raises(ValueError, match="runs on cpu or cuda"):
         corr_kernel.correlation(x.to("meta"), x.to("meta"), 3)
-    with pytest.raises(NotImplementedError, match="bf16 stereo"):
-        port_corr.correlation1d(x.bfloat16(), x.bfloat16(), 3)
+    # bf16 features no longer raise: they take the banded-Gram correlation,
+    # whose wrapper rejects the same bad input.
+    got = port_corr.correlation1d(x.bfloat16(), x.bfloat16(), 3)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (1, 2, 8, 3)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        gram_kernel.correlation_gram(x.bfloat16(), torch.zeros(1, 2, 8, 5).bfloat16(), 3)
+    with pytest.raises(ValueError, match="max_disp"):
+        gram_kernel.correlation_gram(x.bfloat16(), x.bfloat16(), 0)
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        gram_kernel.correlation_gram(x.bfloat16().to("meta"), x.bfloat16().to("meta"), 3)
+
+
+# (B, H, W, C, D) straddling the T = 64 tile: w < T, w % T != 0, w % T == 0,
+# config 5's W = 288 at D = 48 and D = 24, D > W, C = 24 (not a multiple of
+# 16), C = 128 (the _c128 preset), odd B*H.
+GRAM_CASES = [
+    (2, 4, 32, 16, 8),
+    (1, 3, 130, 16, 12),
+    (2, 2, 128, 64, 16),
+    (1, 2, 288, 64, 48),
+    (1, 2, 288, 64, 24),
+    (1, 2, 8, 16, 12),
+    (2, 3, 37, 24, 12),
+    (1, 1, 40, 128, 48),
+]
+
+
+def _bf16_spacing(x: np.ndarray) -> np.ndarray:
+    """The gap between neighbouring bf16 values at |x| (8 significant bits)."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), 2.0**-120)))
+    return 2.0 ** (e - 7)
+
+
+@pytest.mark.parametrize("shape", GRAM_CASES, ids=lambda s: "x".join(map(str, s)))
+def test_correlation_gram_plain_matches_jax_gram_and_pallas(shape):
+    """The plain banded Gram on bf16 features vs the JAX package's
+    _correlation_gram and the TPU kernels 8 (v3) and 7 (v2) in interpret
+    mode. Each side rounds an fp32 sum, taken in its own order, to bf16
+    once, so two results may sit one bf16 spacing apart (between 2^-8 and
+    2^-7 of |want|, where 2^-8 x |want| bounds one rounding against the
+    exact value). For C not a power of two _correlation_gram
+    rounds the raw Gram and then scales by the inexact 1/C: two spacings.
+    atol 1e-6 for sums that cancel to near zero."""
+    b, h, w, c, d = shape
+    rng = np.random.default_rng(sum(shape))
+    fl = _np(torch.from_numpy(_normal(rng, (b, h, w, c))).bfloat16().float())
+    fr = _np(torch.from_numpy(_normal(rng, (b, h, w, c))).bfloat16().float())
+    got = gram_kernel.correlation_gram_plain(
+        torch.from_numpy(fl).bfloat16(), torch.from_numpy(fr).bfloat16(), d
+    )
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, h, w, d)
+    got = _np(got.float())
+    jl, jr = jnp.asarray(fl, jnp.bfloat16), jnp.asarray(fr, jnp.bfloat16)
+    spacings = 1 if c & (c - 1) == 0 else 2
+    for name, want in (
+        ("_correlation_gram", _correlation_gram(jl, jr, d)),
+        ("v3", correlation_pallas_v3(jl, jr, d, interpret=True)),
+        ("v2", correlation_pallas_v2(jl, jr, d, interpret=True)),
+    ):
+        want = np.asarray(want.astype(jnp.float32))
+        bound = spacings * _bf16_spacing(want) + 1e-6
+        assert (np.abs(got - want) <= bound).all(), (name, np.abs(got - want).max())
+        spacings = 1  # the Pallas kernels scale the fp32 sum before rounding
+    # Out-of-frame right samples contribute exactly zero.
+    for k in range(min(d, w)):
+        assert not got[:, :, :k, k].any()
+
+
+@pytest.mark.parametrize("shape", GRAM_CASES, ids=lambda s: "x".join(map(str, s)))
+def test_correlation_gram_plain_fp32_matches_oracle(shape):
+    """In fp32 the band indexing is exact: the plain banded Gram vs the JAX
+    oracle at atol 1e-5 (the JAX Gram test's own bound; sums of C products
+    in another order)."""
+    b, h, w, c, d = shape
+    rng = np.random.default_rng(sum(shape) + 1)
+    fl, fr = _normal(rng, (b, h, w, c)), _normal(rng, (b, h, w, c))
+    got = gram_kernel.correlation_gram_plain(torch.from_numpy(fl), torch.from_numpy(fr), d)
+    assert got.dtype == torch.float32
+    want = _correlation_jnp(jnp.asarray(fl), jnp.asarray(fr), d)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5)
+
+
+def test_correlation1d_dispatches_on_dtype(monkeypatch):
+    """bf16 features take the banded Gram and fp32 the correlation kernel,
+    each its plain version on the CPU, and no kernel is launched."""
+    calls = []
+    for mod, name in ((gram_kernel, "correlation_gram_plain"), (corr_kernel, "correlation_plain")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(
+            mod, name, lambda *a, _real=real, _name=name: calls.append(_name) or _real(*a)
+        )
+    rng = np.random.default_rng(5)
+    fl = torch.from_numpy(_normal(rng, (1, 2, 40, 8)))
+    fr = torch.from_numpy(_normal(rng, (1, 2, 40, 8)))
+    _build.LAUNCHES.clear()
+    got16 = port_corr.correlation1d(fl.bfloat16(), fr.bfloat16(), 8)
+    got32 = port_corr.correlation1d(fl, fr, 8)
+    assert calls == ["correlation_gram_plain", "correlation_plain"]
+    assert got16.dtype == torch.bfloat16 and got32.dtype == torch.float32
+    assert torch.equal(got16, gram_kernel.correlation_gram(fl.bfloat16(), fr.bfloat16(), 8))
+    assert not _build.LAUNCHES
 
 
 # (shape, temperature, scale, epilogue)
