@@ -44,7 +44,27 @@ Phases, one line each (more for the per-shape kernel checks):
      b2, the depth abs-rel of bf16 against the card's fp32 run of the same
      weights (seeded, and with the cost head x20 so the readout is
      peaked); latency_d96 at b2 once;
- 11. bf16 stereo serving: 2 PNG pairs through serve.serve_requests.
+ 11. bf16 stereo serving: 2 PNG pairs through serve.serve_requests;
+ 12. fused tail kernel: fused_tail at mono_kitti_384x1152_bench's level 0
+     (128, 192, 576, 32) -> (128, 384, 1152, 16) in bf16, config 1's
+     (1, 96, 320, 32) in fp32 and bf16, and ragged shapes (h = 2, odd w, C
+     not a multiple of 8), each against its plain version; at the first
+     three, its time beside the plain version's, the port's unfused chain's
+     (conv3x3, upsample2x, conv3x3) and a three-stage cuDNN chain's, its
+     bound and its ptxas line;
+ 13. the judged bench path: benchmark.run_bench("mono_kitti_384x1152_bench")
+     (b128, bf16, 384x1152) with the fused tail on, off, on: frames/s,
+     launches per forward (on: 1 fused_tail, 9 conv3x3, 4 upsample_concat;
+     off: 11 conv3x3), peak memory, a profile of one b128 forward by kernel,
+     each kernel call of one b128 forward (9 conv3x3, 4 upsample_concat,
+     the fused tail; and the unfused level 0's 2 conv3x3) on the inputs
+     that forward gave it against its plain version, with the kernel's,
+     the plain version's and cuDNN's times and the bound,
+     agreement with a CPU bf16 run at b2, and the depth abs-rel of bf16
+     against the card's fp32 run (seeded weights at b128, the reference's
+     seed-0 weights at b8);
+ 14. bench.py's line for the port: frames/s with parity_abs_rel in fp32
+     (<= 1e-4) and bf16 (<= 1e-3).
 Then one JSON line of per-kernel results (with each kernel's bound on
 this card and, where one PyTorch call computes the same function, that
 call's time) and, last, the ok line.
@@ -173,15 +193,24 @@ def phase_build(_build) -> None:
         spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", text)]
         ptxas = (f" | ptxas: {len(regs)} kernels, max {max(regs, default=0)} "
                  f"registers, {sum(spills)} bytes of spill stores")
-        at = text.find("correlation_gram_kernel")
-        report = text[at:at + 600]
-        fields = [re.search(pat, report) for pat in (
-            r"Used (\d+) registers", r"(\d+) bytes smem", r"(\d+) bytes spill stores")]
-        check(at >= 0 and all(fields), "no ptxas report for correlation_gram_kernel in nvcc.log")
-        ptxas += (f" | correlation_gram_kernel: {fields[0].group(1)} registers, "
-                  f"{fields[1].group(1)} bytes of shared memory, {fields[2].group(1)} "
-                  "bytes of spill stores")
+        ptxas += " | " + ptxas_report(text, "correlation_gram_kernel")
     print(f"[2 build] {_build.build_seconds:.1f} s -> {path}{ptxas}")
+
+
+def ptxas_report(text: str, kernel: str, static_smem: bool = True) -> str:
+    """What ptxas reported in nvcc.log for the first entry function whose
+    name holds ``kernel``: registers, static shared memory, spill stores.
+    A kernel with ``static_smem`` must report its shared memory; one that
+    takes only dynamic shared memory may report none."""
+    at = text.find(kernel)
+    report = text[at:at + 600]
+    regs, smem, spills = (re.search(pat, report) for pat in (
+        r"Used (\d+) registers", r"(\d+) bytes smem", r"(\d+) bytes spill stores"))
+    check(at >= 0 and regs is not None and spills is not None
+          and (smem is not None or not static_smem),
+          f"no ptxas report for {kernel} in nvcc.log")
+    return (f"{kernel}: {regs.group(1)} registers, {smem.group(1) if smem else 0} bytes of "
+            f"static shared memory, {spills.group(1)} bytes of spill stores")
 
 
 def _rand(rng, shape, scale, dtype):
@@ -212,7 +241,7 @@ def _conv_case(conv_block, rng, shape, act, border, dtype, out_dtype):
     return args, err.max().item(), tol, ok
 
 
-def _conv_library_ms(x, wt, bias) -> float:
+def _conv_library_ms(x, wt, bias, runs: int = RUNS) -> float:
     """cuDNN's conv with bias (F.conv2d, channels-last) on the same input
     with its reflect border padded beforehand: the convolution of the
     conv3x3 kernel without its activation."""
@@ -221,7 +250,7 @@ def _conv_library_ms(x, wt, bias) -> float:
     xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
     xp = xp.contiguous(memory_format=torch.channels_last)
     wc = wt.contiguous(memory_format=torch.channels_last)
-    return time_ms(lambda: F.conv2d(xp, wc, bias))
+    return time_ms(lambda: F.conv2d(xp, wc, bias), runs=runs)
 
 
 def _upcat_bytes(x, skip) -> int:
@@ -722,18 +751,18 @@ def _device_ms(p, lt, rt, n: int = 10) -> float:
     return start.elapsed_time(end) / n
 
 
-def _profile(p, lt, rt, n: int = 3) -> str:
-    """Device time by kernel over n forwards (torch.profiler): the kernel
-    time per forward, its busy share of the span from the first kernel's
-    start to the last one's end, and the largest kernels."""
+def _profile(forward, n: int = 3) -> str:
+    """Device time by kernel over n calls of ``forward`` (torch.profiler):
+    the kernel time per forward, its busy share of the span from the first
+    kernel's start to the last one's end, and the largest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    p.stereo_forward(lt, rt)
+    forward()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            p.stereo_forward(lt, rt)
+            forward()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
@@ -805,7 +834,7 @@ def phase_bf16_end_to_end(sdt, _build, gram, sa, upcat) -> dict:
     p.stereo_forward(lt, rt)
     torch.cuda.synchronize()
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    prof = _profile(p, lt, rt)
+    prof = _profile(lambda: p.stereo_forward(lt, rt))
 
     # The same bf16 weights through the plain versions on the CPU, at b2.
     t0 = time.perf_counter()
@@ -885,14 +914,337 @@ def phase_serve(sdt, serve) -> None:
           f"{resps[0]['shape']}, ms {[r['ms'] for r in resps]}")
 
 
+BENCH_CONFIG = "mono_kitti_384x1152_bench"
+BENCH_B = 128
+BENCH_ITERS = 10
+BENCH_WARMUP = 2
+# (name, (B, h, w, C1, C0, C0o), dtype) of the fused tail: the bench preset's
+# level 0, config 1's level 0, and ragged shapes (h = 2, odd w, C not a
+# multiple of 8, more than one channel chunk in every stage).
+TAIL_MAIN = ("bench", (BENCH_B, 192, 576, 32, 16, 16), torch.bfloat16)
+TAIL_EXTRA = [
+    ("config1", (1, 96, 320, 32, 16, 16), torch.float32),
+    ("config1", (1, 96, 320, 32, 16, 16), torch.bfloat16),
+    ("ragged", (2, 2, 7, 12, 5, 6), torch.float32),
+    ("ragged", (2, 2, 7, 12, 5, 6), torch.bfloat16),
+    ("ragged", (3, 17, 33, 40, 17, 19), torch.float32),
+    ("ragged", (3, 17, 33, 40, 17, 19), torch.bfloat16),
+]
+# Seeded LeCun-init weights put bf16 and fp32 depth further apart than the
+# 1e-3 budget of BASELINE.json, in the JAX package too (1.76e-3 at 64x128
+# in tests/test_torch_port_api.py); measured 1.14e-3 here at b128 on an
+# NVIDIA H100 80GB HBM3 at 700 W. The budget is held on the reference's
+# seed-0 weights.
+SEEDED_ABS_REL = 2.5e-3
+# Card vs a CPU run of the same bf16 weights at b2 on 384x1152 frames, in
+# sigmoid units and depth relative: the bf16 convs round at other places
+# in cuDNN and in oneDNN. Measured 3.09e-3 and 7.35e-3 on an NVIDIA H100
+# 80GB HBM3 at 700 W.
+BENCH_SIG_ATOL = 1e-2
+BENCH_DEPTH_RTOL = 5e-2
+
+
+def _tail_case(ft, gen, shape, dtype):
+    """One fused_tail kernel call against its plain version on the card:
+    fp32 atol 1e-4 + rtol 1e-4, bf16 1e-2 x max|ref| (conv3x3's rules)."""
+    b, h, w, c1, c0, c0o = shape
+
+    def rand(shape_, scale):
+        return (torch.randn(shape_, generator=gen, device="cuda") * scale).to(dtype)
+
+    args = (rand((b, h, w, c1), 1.0), rand((c0, c1, 3, 3), (9 * c1) ** -0.5),
+            rand((c0,), 0.1), rand((c0o, c0, 3, 3), (9 * c0) ** -0.5), rand((c0o,), 0.1))
+    got = ft.fused_tail(*args)
+    ref = ft.fused_tail_plain(*args)
+    torch.cuda.synchronize()
+    check(got.dtype == dtype and got.shape == ref.shape == (b, 2 * h, 2 * w, c0o),
+          f"fused_tail {shape} {got.dtype} {tuple(got.shape)}")
+    err = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        tol, ok = "atol 1e-4 + rtol 1e-4", bool((err <= 1e-4 + 1e-4 * ref.float().abs()).all())
+    else:
+        ref_max = ref.float().abs().max().item()
+        tol, ok = f"1e-2 x max|ref| = {1e-2 * ref_max:.3g}", err.max().item() <= 1e-2 * ref_max
+    return args, err.max().item(), tol, ok
+
+
+def _unfused_chain(conv_block, y1, w00, b00, w01, b01):
+    """The port's decoder without the fused tail: conv3x3 kernel, nearest
+    2x, conv3x3 kernel."""
+    from scenedepthestimation_tpu_torch.ops.upsample import upsample2x
+
+    return conv_block.conv3x3(upsample2x(conv_block.conv3x3(y1, w00, b00)), w01, b01)
+
+
+def _cudnn_chain(y1, w00, b00, w01, b01):
+    """The same function in three stages of PyTorch calls (no one call
+    computes it): reflect pad + cuDNN conv + ELU, nearest 2x, reflect pad
+    + cuDNN conv + ELU, channels-last."""
+    import torch.nn.functional as F
+
+    x = y1.permute(0, 3, 1, 2)
+    z = F.elu(F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), w00, b00))
+    z = F.interpolate(z, scale_factor=2, mode="nearest")
+    return F.elu(F.conv2d(F.pad(z, (1, 1, 1, 1), mode="reflect"), w01, b01))
+
+
+def phase_tail_kernels(ft, conv_block, _build) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    with open(os.path.join(os.path.dirname(_build.library_path()), "nvcc.log")) as f:
+        text = f.read()
+    ptxas = "; ".join(ptxas_report(text, k, static_smem=False)
+                      for k in ("fused_tail_kernel", "fused_tail_tc_kernel"))
+    smem = {dt: _build.lib().sde_fused_tail_smem(32, 16, 16, code)
+            for dt, code in (("fp32", 0), ("bf16", 1))}
+    res = None
+    for name, shape, dtype in [TAIL_MAIN] + TAIL_EXTRA:
+        dt = "fp32" if dtype == torch.float32 else "bf16"
+        args, err, tol, ok = _tail_case(ft, gen, shape, dtype)
+        line = f"[12 fused_tail {dt}] {name} {shape[:4]} -> C0 {shape[4]} -> C0o {shape[5]}: max|err| {err:.3g} ({tol})"
+        if name != "ragged":
+            wc = [w.contiguous(memory_format=torch.channels_last) for w in (args[1], args[3])]
+            fns = {"kernel": lambda: ft.fused_tail(*args),
+                   "plain": lambda: ft.fused_tail_plain(*args),
+                   "unfused chain": lambda: _unfused_chain(conv_block, *args),
+                   "cudnn chain": lambda: _cudnn_chain(args[0], wc[0], args[2], wc[1], args[4])}
+            runs = 10 if name == "bench" else RUNS
+            t = {k: time_ms(fn, runs=runs) for k, fn in fns.items()}
+            b, h, w, c1, c0, c0o = shape
+            y0_bytes = b * 4 * h * w * c0o * args[0].element_size()
+            ops = 2 * b * (h * w * 9 * c1 * c0 + 4 * h * w * 9 * c0 * c0o)
+            r = {"err": err, "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["cudnn chain"],
+                 "chain_ms": t["unfused chain"]}
+            add_bound(r, nbytes(*args) + y0_bytes, ops, dt)
+            by = max(r["bound_parts"], key=r["bound_parts"].get)
+            line += (f"; ms: kernel {t['kernel']:.4f}, plain {t['plain']:.4f}, port's unfused chain "
+                     f"(conv3x3, upsample2x, conv3x3) {t['unfused chain']:.4f}, cuDNN chain (three "
+                     f"stages: pad+conv2d+elu, interpolate, pad+conv2d+elu) {t['cudnn chain']:.4f}; "
+                     f"bound {r['bound_ms']:.4f} ms ({by})")
+            if name == "bench":
+                res = r
+        print(line)
+        check(ok, f"fused_tail {dt} {shape} disagrees with its plain version")
+    print(f"[12 fused_tail build] {ptxas} (fp32 on the CUDA cores, bf16 on the tensor cores); "
+          f"dynamic shared memory a block at 32 -> 16 -> 16: {smem} bytes")
+    return res
+
+
+def _capture(forward, *wrappers) -> dict:
+    """Runs forward() with each (module, name) kernel wrapper also keeping
+    the arguments of each call: {name: [(args, kwargs), ...]}."""
+    calls = {name: [] for _, name in wrappers}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in wrappers]
+
+    def keeping(name, fn):
+        def call(*args, **kwargs):
+            calls[name].append((args, kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    for mod, name, fn in saved:
+        setattr(mod, name, keeping(name, fn))
+    try:
+        forward()
+        torch.cuda.synchronize()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return calls
+
+
+# The bench decoder's kernel calls in launch order with the fused tail on.
+BENCH_CONV_NAMES = ["upconv_4_0", "upconv_4_1", "upconv_3_0", "upconv_3_1", "upconv_2_0",
+                    "upconv_2_1", "upconv_1_0", "upconv_1_1", "dispconv_0"]
+BENCH_UPCAT_NAMES = ["level_4", "level_3", "level_2", "level_1"]
+BENCH_KERNEL_RUNS = 5
+
+
+def _bench_conv(conv_block, tag, args, kwargs, r=None) -> None:
+    """One conv3x3 call of the bench against its plain version on the same
+    inputs (bf16: 1e-2 x max|ref|), with the kernel's, the plain version's
+    and cuDNN's times; summed into r when given."""
+    got = conv_block.conv3x3(*args, **kwargs)
+    ref = conv_block.conv3x3_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    ref_max = ref.float().abs().max().item()
+    out_bytes = nbytes(got)
+    del got, ref
+    x, wt, bias = args
+    b, h, w, cin = x.shape
+    cout = wt.shape[0]
+    ms = time_ms(lambda: conv_block.conv3x3(*args, **kwargs), runs=BENCH_KERNEL_RUNS)
+    plain_ms = time_ms(lambda: conv_block.conv3x3_plain(*args, **kwargs), runs=BENCH_KERNEL_RUNS)
+    lib_ms = _conv_library_ms(x, wt, bias, runs=BENCH_KERNEL_RUNS)
+    t, by = bound_ms(nbytes(x, wt, bias) + out_bytes, 2 * 9 * b * h * w * cin * cout, "bf16")
+    print(f"[13 bench conv3x3 bf16] {tag} {tuple(x.shape)} -> {cout} "
+          f"{kwargs.get('activation', 'elu')}: max|err| {err:.3g} (1e-2 x max|ref| = "
+          f"{1e-2 * ref_max:.3g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms cuDNN "
+          f"{lib_ms:.4f} ms bound {t:.4f} ms ({by})")
+    check(err <= 1e-2 * ref_max, f"conv3x3 bench {tag} disagrees with its plain version")
+    if r is not None:
+        r["err"] = max(r["err"], err)
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["library_ms"] += lib_ms
+        add_bound(r, nbytes(x, wt, bias) + out_bytes, 2 * 9 * b * h * w * cin * cout, "bf16")
+
+
+def _bench_kernels(conv_block, upcat, fts, forward) -> dict:
+    """Each kernel call of one bench forward (b128, bf16, fused tail on) on
+    the inputs that forward gave it, against its plain version: 9 conv3x3,
+    4 upsample_concat and the fused tail; then the two conv3x3 calls of
+    the unfused level 0 on the same level-0 input. Times: median of
+    BENCH_KERNEL_RUNS CUDA-event pairs."""
+    from scenedepthestimation_tpu_torch.ops.upsample import upsample2x
+
+    calls = _capture(forward, (conv_block, "conv3x3"), (upcat, "upsample_concat"),
+                     (fts, "fused_tail"))
+    counts = {k: len(v) for k, v in calls.items()}
+    check(counts == {"conv3x3": 9, "upsample_concat": 4, "fused_tail": 1},
+          f"bench forward kernel calls {counts}")
+    conv = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    for name, (args, kwargs) in zip(BENCH_CONV_NAMES, calls["conv3x3"]):
+        _bench_conv(conv_block, name, args, kwargs, conv)
+    cat = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    for name, (args, _) in zip(BENCH_UPCAT_NAMES, calls["upsample_concat"]):
+        err = (upcat.upsample_concat(*args).float()
+               - upcat.upsample_concat_plain(*args).float()).abs().max().item()
+        ms = time_ms(lambda: upcat.upsample_concat(*args), runs=BENCH_KERNEL_RUNS)
+        plain_ms = time_ms(lambda: upcat.upsample_concat_plain(*args), runs=BENCH_KERNEL_RUNS)
+        t, _ = bound_ms(_upcat_bytes(*args), 0, "bf16")
+        print(f"[13 bench upsample_concat bf16] {name} {tuple(args[0].shape)} + "
+              f"{tuple(args[1].shape)}: max|err| {err:.3g} (exact) kernel {ms:.4f} ms "
+              f"plain {plain_ms:.4f} ms bound {t:.4f} ms (bytes)")
+        check(err == 0.0, f"upsample_concat bench {name} is not exact")
+        cat["ms"] += ms
+        cat["plain_ms"] += plain_ms
+        add_bound(cat, _upcat_bytes(*args), 0, "bf16")
+    (y1, w00, b00, w01, b01), _ = calls["fused_tail"][0]
+    got = fts.fused_tail(y1, w00, b00, w01, b01)
+    ref = fts.fused_tail_plain(y1, w00, b00, w01, b01)
+    err = (got.float() - ref.float()).abs().max().item()
+    ref_max = ref.float().abs().max().item()
+    del got, ref
+    print(f"[13 bench fused_tail bf16] level 0 {tuple(y1.shape)} on the forward's input: "
+          f"max|err| {err:.3g} (1e-2 x max|ref| = {1e-2 * ref_max:.3g})")
+    check(err <= 1e-2 * ref_max, "fused_tail on the bench forward's input disagrees")
+    # The fused tail off: upconv_0_0 and upconv_0_1 as two conv3x3 calls.
+    _bench_conv(conv_block, "upconv_0_0 (off)", (y1, w00, b00), {})
+    z = upsample2x(conv_block.conv3x3(y1, w00, b00))
+    _bench_conv(conv_block, "upconv_0_1 (off)", (z, w01, b01), {})
+    return {"conv3x3": conv, "upsample_concat": cat}
+
+
+def phase_bench(sdt, benchmark, fts, _build, conv_block, upcat) -> dict:
+    """The judged bench path: run_bench with the fused tail on, off, on."""
+    import dataclasses
+
+    from scenedepthestimation_tpu_torch.models.monodepth import MonoDepthNet
+    from scenedepthestimation_tpu_torch.utils import weights as weights_io
+
+    forwards = BENCH_WARMUP + BENCH_ITERS
+    runs, per_forward = [], {}
+    for flag in (True, None, True):
+        fts.set_use_fused_tail(flag)
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        r = benchmark.run_bench(BENCH_CONFIG, iters=BENCH_ITERS, warmup=BENCH_WARMUP)
+        launches = dict(_build.LAUNCHES)
+        want = ({"fused_tail": 1, "conv3x3": 9, "upsample_concat": 4} if flag
+                else {"conv3x3": 11, "upsample_concat": 4})
+        check(launches == {k: v * forwards for k, v in want.items()},
+              f"fused tail {flag}: {launches} launches over {forwards} forwards, want {want} each")
+        check(np.isfinite(r["checksum"]) and r["checksum"] > 0, f"bench checksum {r['checksum']}")
+        per_forward["on" if flag else "off"] = want
+        runs.append((flag, r, torch.cuda.max_memory_allocated() / 2**30))
+    fts.set_use_fused_tail(True)
+
+    cfg = sdt.configs.get(BENCH_CONFIG)
+    frames = np.random.default_rng(0).integers(0, 256, (BENCH_B, cfg.height, cfg.width, 3), dtype=np.uint8)
+    img = torch.from_numpy(frames).cuda()
+    p = sdt.load_weights(None, cfg, seed=0, device="cuda")
+    prof = _profile(lambda: p.mono_forward(img), n=2)
+    depth = p.mono_forward(img)["depth"]
+    check(depth.shape == (BENCH_B, cfg.height, cfg.width) and bool(torch.isfinite(depth).all()),
+          f"bench depth {tuple(depth.shape)} not finite")
+    kernels = _bench_kernels(conv_block, upcat, fts, lambda: p.mono_forward(img))
+    torch.cuda.empty_cache()
+
+    # The same bf16 weights through the plain versions on the CPU, at b2.
+    t0 = time.perf_counter()
+    ref = sdt.predict_mono(sdt.load_weights(None, cfg, seed=0, device="cpu"), frames[:2])
+    cpu_s = time.perf_counter() - t0
+    lo, hi = 1.0 / cfg.mono.max_depth, 1.0 / cfg.mono.min_depth
+    out2 = {k: v[:2].cpu().numpy() for k, v in p.mono_forward(img[:2]).items()}
+    s_err = float(np.abs(out2["disp"] - ref["disp"]).max()) / (hi - lo)
+    z_rel = float((np.abs(out2["depth"] - ref["depth"]) / ref["depth"]).max())
+    check(s_err <= BENCH_SIG_ATOL, f"bench bf16 sigmoid disp vs CPU {s_err:.3g} > {BENCH_SIG_ATOL}")
+    check(z_rel <= BENCH_DEPTH_RTOL, f"bench bf16 depth vs CPU max rel {z_rel:.3g} > {BENCH_DEPTH_RTOL}")
+
+    # bf16 against the card's fp32 run: the seeded weights at b128, and the
+    # reference's seed-0 weights (tools/torch_ref) at b8.
+    def abs_rel(a, b):
+        return float(torch.mean(torch.abs(a - b) / b))
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = sdt.load_weights(None, cfg32, seed=0, device="cuda")
+    rel_seeded = abs_rel(depth, p32.mono_forward(img)["depth"])
+    del p32
+    torch.manual_seed(0)
+    state = {k: v for k, v in benchmark._torch_ref().MonoDepthNet().state_dict().items()
+             if not k.endswith("num_batches_tracked")}
+    ref_depth = {}
+    for c in (cfg, cfg32):
+        model = MonoDepthNet(c.mono)
+        weights_io.load_state(model, state)
+        ref_depth[c.dtype] = sdt.Predictor(c, model, "cuda").mono_forward(img[:8])["depth"]
+    rel_ref = abs_rel(ref_depth["bfloat16"], ref_depth["float32"])
+    check(rel_seeded <= SEEDED_ABS_REL, f"bench bf16 vs fp32 abs-rel (seeded) {rel_seeded:.3g}")
+    check(rel_ref <= ABS_REL_BUDGET, f"bench bf16 vs fp32 abs-rel (reference weights) {rel_ref:.3g}")
+    del p, img, depth, ref_depth
+    torch.cuda.empty_cache()
+
+    print(f"[13 bench] {BENCH_CONFIG} b{BENCH_B} bf16 {cfg.height}x{cfg.width}, run_bench "
+          f"({BENCH_WARMUP} warmup + {BENCH_ITERS} timed forwards, host clock, one sync) with the "
+          "fused tail on, off, on: frames/s "
+          + ", ".join(f"{'on' if f else 'off'} {r['value']}" for f, r, _ in runs)
+          + f"; launches per forward on {per_forward['on']}, off {per_forward['off']}; peak "
+          "memory GiB " + ", ".join(f"{m:.3f}" for _, _, m in runs)
+          + f"; device {runs[0][1]['device']}")
+    print(f"[13 bench] vs CPU bf16 b2 ({cpu_s:.1f} s): sigmoid disp max|err| {s_err:.3g} (atol "
+          f"{BENCH_SIG_ATOL:g}), depth max rel {z_rel:.3g} (rtol {BENCH_DEPTH_RTOL:g}); depth "
+          f"abs-rel bf16 vs the card's fp32: seeded weights b{BENCH_B} {rel_seeded:.3g} (<= "
+          f"{SEEDED_ABS_REL:g}), reference seed-0 weights b8 {rel_ref:.3g} (<= {ABS_REL_BUDGET:g})")
+    print(f"[13 bench profile] one forward, fused tail on: {prof}")
+    return {"fps": runs[-1][1], "launches": per_forward["on"], "kernels": kernels}
+
+
+def phase_parity(benchmark, fts, bench: dict) -> None:
+    """bench.py's line for the port: the last fused-tail-on frames/s and
+    parity_abs_rel in fp32 and bf16 on the card."""
+    fts.set_use_fused_tail(True)
+    fp32 = benchmark.parity_abs_rel("float32")
+    bf16 = benchmark.parity_abs_rel("bfloat16")
+    check(fp32 <= 1e-4, f"parity_abs_rel fp32 {fp32:.3g} > 1e-4")
+    check(bf16 <= ABS_REL_BUDGET, f"parity_abs_rel bf16 {bf16:.3g} > {ABS_REL_BUDGET}")
+    r = bench["fps"]
+    line = {"metric": r["metric"], "value": r["value"], "unit": r["unit"],
+            "vs_baseline": r["vs_baseline"], "abs_rel_delta_fp32": fp32,
+            "abs_rel_delta_bf16": bf16}
+    print(f"[14 bench line] {json.dumps(line)}")
+
+
 def main() -> int:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     import scenedepthestimation_tpu_torch as sdt
-    from scenedepthestimation_tpu_torch import serve
+    from scenedepthestimation_tpu_torch import benchmark, serve
+    from scenedepthestimation_tpu_torch.ops import fused_tail as fts
     from scenedepthestimation_tpu_torch.ops import soft_argmin as sa_ops
     from scenedepthestimation_tpu_torch.ops.cuda import _build, conv_block
     from scenedepthestimation_tpu_torch.ops.cuda import correlation as corr
     from scenedepthestimation_tpu_torch.ops.cuda import correlation_gram as gram
+    from scenedepthestimation_tpu_torch.ops.cuda import fused_tail as ft
     from scenedepthestimation_tpu_torch.ops.cuda import soft_argmin as sa
     from scenedepthestimation_tpu_torch.ops.cuda import upsample_concat as upcat
 
@@ -907,44 +1259,57 @@ def main() -> int:
     bf16_res = phase_bf16_kernels(gram, corr, sa_ops, sa, upcat)
     bf16_launches = phase_bf16_end_to_end(sdt, _build, gram, sa, upcat)
     phase_stereo_serve(sdt, serve, 11, BF16_CONFIG, 2)
+    tail_res = phase_tail_kernels(ft, conv_block, _build)
+    bench = phase_bench(sdt, benchmark, fts, _build, conv_block, upcat)
+    phase_parity(benchmark, fts, bench)
 
     # Each entry covers the main paths that run the kernel: mono b1 (fp32),
-    # stereo b4 (fp32) and config-5 stereo b16 (bf16). ms / plain_ms /
-    # bound_ms are summed over the kernel's calls on those paths, i.e. its
-    # device time per forward of each path, added up; launches are the
-    # counts of those forwards; max_abs_err is over the same shapes.
+    # stereo b4 (fp32), config-5 stereo b16 (bf16) and the mono bench b128
+    # (bf16, fused tail on). ms / plain_ms / bound_ms / library_ms are
+    # summed over the kernel's calls on those paths, i.e. its device time
+    # per forward of each path, added up; launches are the counts per
+    # forward of those paths; max_abs_err is over the same calls.
     def merged(*parts):
         out = {"err": max(r["err"] for r in parts), "ms": 0.0, "plain_ms": 0.0,
                "bound_ms": 0.0, "bound_parts": {}}
+        keys = ("ms", "plain_ms", "bound_ms")
+        if all("library_ms" in r for r in parts):
+            out["library_ms"] = 0.0
+            keys += ("library_ms",)
         for r in parts:
-            for k in ("ms", "plain_ms", "bound_ms"):
+            for k in keys:
                 out[k] += r[k]
             for by, t in r["bound_parts"].items():
                 out["bound_parts"][by] = out["bound_parts"].get(by, 0.0) + t
         return out
 
+    res["conv3x3"] = merged(res["conv3x3"], bench["kernels"]["conv3x3"])
     res["upsample_concat"] = merged(res["upsample_concat"], stereo_res["upsample_concat"],
-                                    bf16_res["upsample_concat"])
+                                    bf16_res["upsample_concat"],
+                                    bench["kernels"]["upsample_concat"])
     res["correlation"] = stereo_res["correlation"]
     res["correlation_gram"] = bf16_res["correlation_gram"]
     res["soft_argmin"] = merged(stereo_res["soft_argmin"], bf16_res["soft_argmin"])
+    res["fused_tail"] = tail_res
     launches = {
-        "conv3x3": launches["conv3x3"],
+        "conv3x3": launches["conv3x3"] + bench["launches"]["conv3x3"],
         "upsample_concat": launches["upsample_concat"] + stereo_launches["upsample_concat"]
-        + bf16_launches["upsample_concat"],
+        + bf16_launches["upsample_concat"] + bench["launches"]["upsample_concat"],
         "correlation": stereo_launches["correlation"] + bf16_launches.get("correlation", 0),
         "correlation_gram": bf16_launches["correlation_gram"],
         "soft_argmin": stereo_launches["soft_argmin"] + bf16_launches["soft_argmin"],
+        "fused_tail": bench["launches"]["fused_tail"],
     }
     meta = {
         "conv3x3": ("scenedepthestimation_tpu_torch/csrc/conv_block.cu",
                     "scenedepthestimation_tpu/ops/pallas/conv_block.py:167",
-                    f"{CONFIG} b1 decoder, 11 shapes, fp32"),
+                    f"{CONFIG} b1 decoder, 11 shapes, fp32 + {BENCH_CONFIG} b128 decoder, "
+                    "9 shapes, bf16"),
         "upsample_concat": ("scenedepthestimation_tpu_torch/csrc/upsample_concat.cu",
                             "scenedepthestimation_tpu/ops/pallas/upsample_concat.py:37",
                             f"{CONFIG} b1 decoder 4 joins fp32 + {STEREO_CONFIG} b4 "
                             f"aggregation 3 joins fp32 + {BF16_CONFIG} b16 aggregation "
-                            "3 joins bf16"),
+                            f"3 joins bf16 + {BENCH_CONFIG} b128 decoder 4 joins bf16"),
         "correlation": ("scenedepthestimation_tpu_torch/csrc/correlation.cu",
                         "scenedepthestimation_tpu/ops/pallas/correlation.py:113",
                         f"{STEREO_CONFIG} b4 (4, 64, 128, 64) D=48 fp32"),
@@ -956,6 +1321,11 @@ def main() -> int:
                         "scenedepthestimation_tpu/ops/pallas/soft_argmin.py:41",
                         f"{STEREO_CONFIG} b4 (4, 64, 128, 48) x4 + {BF16_CONFIG} b16 "
                         "(16, 96, 288, 48) x4, fp32 cost"),
+        "fused_tail": ("scenedepthestimation_tpu_torch/csrc/fused_tail.cu",
+                       "scenedepthestimation_tpu/ops/pallas/fused_tail.py:196 + "
+                       "scenedepthestimation_tpu/ops/pallas/fused_tail_v2.py:219",
+                       f"{BENCH_CONFIG} b128 level 0 (128, 192, 576, 32) -> (128, 384, 1152, "
+                       "16) bf16; library_ms is the three-stage cuDNN chain (no one call)"),
     }
     kernels = []
     for name, (src, rep, shapes) in meta.items():

@@ -21,7 +21,7 @@ and read the soft-argmin out in fp32, as the JAX package does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -217,3 +217,29 @@ def predict_stereo(predictor: Predictor, left, right) -> Dict[str, np.ndarray]:
     if squeeze:
         out = {k: v[0] for k, v in out.items()}
     return out
+
+
+def predict_batch(predictor: Predictor, images: Iterable, mesh=None) -> List[Dict[str, np.ndarray]]:
+    """Batched inference over an iterable of batches on the predictor's
+    device: mono batches are uint8 (B, H, W, 3) arrays, stereo batches
+    (left, right) pairs of them. Returns one numpy {'disp', 'depth'} dict
+    per batch, in order.
+
+    ``mesh`` is the JAX package's device mesh for sharding each batch over
+    several chips; the port runs on one device until multi-GPU is ported,
+    so any mesh other than None raises.
+    """
+    if mesh is not None:
+        raise NotImplementedError("predict_batch over a device mesh (multi-GPU) is not ported")
+    results = []
+    for batch in images:
+        if predictor.cfg.pipeline == "stereo":
+            left, right = batch
+            out = predictor.stereo_forward(
+                _ensure_batched(left, predictor.device)[0],
+                _ensure_batched(right, predictor.device)[0],
+            )
+        else:
+            out = predictor.mono_forward(_ensure_batched(batch, predictor.device)[0])
+        results.append({k: v.cpu().numpy() for k, v in out.items()})
+    return results

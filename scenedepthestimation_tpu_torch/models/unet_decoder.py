@@ -8,6 +8,12 @@ kernel (``ops/cuda/conv_block.py``); every skip join is the
 upsample_concat kernel. This is the JAX package's plain decoder with its
 fused Pallas conv switched on; the collapsed and packed TPU relayouts of
 it are exact rewrites and are not ported. Layout: NHWC.
+
+With ``ops.fused_tail.set_use_fused_tail(True or "v2")`` and a nearest
+upsample, level 0's ``upconv_0_0`` -> 2x -> ``upconv_0_1`` is one launch of
+the fused_tail kernel. The JAX collapsed decoder engages its fused tail
+only where ``_pick_th`` finds a row tiling; the port's kernel takes every
+half-res h, w >= 2, and both routes compute the same output.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from scenedepthestimation_tpu_torch.ops import fused_tail
 from scenedepthestimation_tpu_torch.ops.cuda import conv_block
 from scenedepthestimation_tpu_torch.ops.upsample import upsample2x, upsample_concat
 
@@ -107,12 +114,16 @@ class DepthDecoder(nn.Module):
         outputs: Dict[int, torch.Tensor] = {}
         x = features[-1]
         for i in range(4, -1, -1):
-            x = getattr(self, f"upconv_{i}_0")(x)
-            if i > 0:
-                x = upsample_concat(x, features[i - 1], mode=self.upsample_mode)
+            if i == 0 and self.upsample_mode == "nearest" and fused_tail.enabled():
+                u00, u01 = self.upconv_0_0.conv, self.upconv_0_1.conv
+                x = fused_tail.fused_tail(x, u00.weight, u00.bias, u01.weight, u01.bias)
             else:
-                x = upsample2x(x, mode=self.upsample_mode)
-            x = getattr(self, f"upconv_{i}_1")(x)
+                x = getattr(self, f"upconv_{i}_0")(x)
+                if i > 0:
+                    x = upsample_concat(x, features[i - 1], mode=self.upsample_mode)
+                else:
+                    x = upsample2x(x, mode=self.upsample_mode)
+                x = getattr(self, f"upconv_{i}_1")(x)
             if i in scales:
                 outputs[i] = getattr(self, f"dispconv_{i}")(x)
         return outputs

@@ -11,7 +11,7 @@ reuses the library.
 There is no fallback: a missing ``nvcc``, a failed build or a refused
 launch raises. The wrappers that launch kernels (``conv_block``,
 ``upsample_concat``, ``correlation``, ``correlation_gram``,
-``soft_argmin``) add one to :data:`LAUNCHES` per launch, so a run can
+``soft_argmin``, ``fused_tail``) add one to :data:`LAUNCHES` per launch, so a run can
 show that its main path went through them.
 """
 
@@ -63,6 +63,8 @@ _SIGNATURES = {
     "sde_correlation_gram": (_P, _P, _P) + (_I,) * 5 + (_P,),
     # cost, out, n, D, dtype, scale, depth, fb, device, stream
     "sde_soft_argmin": (_P, _P, _L, _I, _I, _F, _I, _F, _I, _P),
+    # y1, w00, b00, w01, b01, y0, B, h, w, C1, C0, C0o, dtype, device, stream
+    "sde_fused_tail": (_P,) * 6 + (_I,) * 8 + (_P,),
 }
 
 
@@ -160,6 +162,8 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(handle, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
+            handle.sde_fused_tail_smem.argtypes = [_I] * 4
+            handle.sde_fused_tail_smem.restype = _L
             handle.sde_error_string.argtypes = [ctypes.c_int]
             handle.sde_error_string.restype = ctypes.c_char_p
             _lib = handle

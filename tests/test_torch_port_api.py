@@ -165,6 +165,9 @@ def test_import_leaves_jax_out():
         "import scenedepthestimation_tpu_torch.ops.cuda.correlation\n"
         "import scenedepthestimation_tpu_torch.ops.cuda.correlation_gram\n"
         "import scenedepthestimation_tpu_torch.ops.cuda.soft_argmin\n"
+        "import scenedepthestimation_tpu_torch.ops.cuda.fused_tail\n"
+        "import scenedepthestimation_tpu_torch.ops.fused_tail\n"
+        "import scenedepthestimation_tpu_torch.benchmark\n"
         "import scenedepthestimation_tpu_torch.models.stereo\n"
         "import scenedepthestimation_tpu_torch.utils.weights\n"
         "import scenedepthestimation_tpu_torch.utils.colormap\n"
@@ -225,3 +228,150 @@ def test_serve_stdio_protocol(port_predictor, tmp_path):
     assert n == 2 and lines[0]["ready"] is True
     assert lines[1]["id"] == 7 and lines[1]["shape"] == list(SRC_HW)
     assert lines[2]["id"] is None and "malformed JSON" in lines[2]["error"]
+
+
+TAIL_HW = (64, 128)  # net size = frame size: the JAX fast-tail branch
+LO, HI = 1.0 / 100.0, 1.0 / 0.1  # the presets' scaled-disparity range
+
+
+def _tail_cfg(cfg_module, dtype):
+    cfg = cfg_module.get("mono_kitti_384x1152_bench")
+    return dataclasses.replace(
+        cfg, dtype=dtype,
+        mono=dataclasses.replace(cfg.mono, height=TAIL_HW[0], width=TAIL_HW[1]),
+    )
+
+
+def _port_tail_predict(cfg, state, frames):
+    from scenedepthestimation_tpu_torch.ops import fused_tail
+
+    model = MonoDepthNet(cfg.mono)
+    weights.load_state(model, state)
+    fused_tail.set_use_fused_tail("v2")
+    try:
+        return api.predict_mono(api.Predictor(cfg, model, "cpu"), frames)
+    finally:
+        fused_tail.set_use_fused_tail(None)
+
+
+def _abs_rel(depth, ref):
+    return float(np.mean(np.abs(depth - ref) / ref))
+
+
+@pytest.fixture(scope="module")
+def tail_runs(jax_predictor):
+    """predict_mono of the JAX package (build_mono_program with the "v2"
+    fused tail, kernel 4 in interpret mode) and of the port (fused tail on)
+    in fp32 and bf16, on the same seeded weights with random BatchNorm
+    statistics and the same b2 uint8 frames at the net size."""
+    from scenedepthestimation_tpu.ops import collapsed
+
+    variables = jax_predictor[1]
+    frames = np.random.default_rng(4).integers(0, 256, (2, *TAIL_HW, 3), dtype=np.uint8)
+    state = weights.from_jax_variables(variables)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        jpred = jax_api.Predictor(_tail_cfg(jax_configs, dtype), jax.tree_util.tree_map(jnp.asarray, variables))
+        collapsed.set_use_fused_tail("v2")
+        try:
+            out["jax", dtype] = jax_api.predict_mono(jpred, frames)
+        finally:
+            collapsed.set_use_fused_tail(None)
+        out["port", dtype] = _port_tail_predict(_tail_cfg(configs, dtype), state, frames)
+    return out
+
+
+def test_predict_mono_fused_tail_matches_jax_fp32(tail_runs):
+    """fp32: disparity atol 1e-5 in sigmoid units, depth rtol 1e-4."""
+    got, want = tail_runs["port", "float32"], tail_runs["jax", "float32"]
+    for k in ("disp", "depth"):
+        assert got[k].shape == (2, *TAIL_HW) and got[k].dtype == np.float32
+    np.testing.assert_allclose((got["disp"] - LO) / (HI - LO), (want["disp"] - LO) / (HI - LO), atol=1e-5)
+    np.testing.assert_allclose(got["depth"], want["depth"], rtol=1e-4)
+
+
+def test_predict_mono_fused_tail_matches_jax_bf16(tail_runs):
+    """bf16, about twice the measured differences (3.36e-3 in sigmoid units
+    at most, depth abs-rel 1.89e-3): the two programs round bf16 at other
+    places (XLA-CPU and oneDNN convs; the JAX decoder rounds each conv
+    output, adds the bias in bf16 and rounds the head's logits, the port
+    rounds once after bias and activation). Against fp32 on the same
+    weights the port stays within max(2 x the JAX package's own figure,
+    1e-3), the budget of BASELINE.json: random LeCun-init weights put both
+    packages above 1e-3 here (JAX 1.76e-3, the port 1.89e-3), which the
+    reference's own weights do not (8.9e-5 in
+    test_bf16_depth_abs_rel_on_reference_weights)."""
+    got, want = tail_runs["port", "bfloat16"], tail_runs["jax", "bfloat16"]
+    s_err = np.abs(got["disp"] - want["disp"]).max() / (HI - LO)
+    assert s_err <= 7e-3, s_err
+    assert _abs_rel(got["depth"], want["depth"]) <= 4e-3
+    jax_rel = _abs_rel(want["depth"], tail_runs["jax", "float32"]["depth"])
+    port_rel = _abs_rel(got["depth"], tail_runs["port", "float32"]["depth"])
+    assert 0 < port_rel <= max(2 * jax_rel, 1e-3), (port_rel, jax_rel)
+
+
+def test_bf16_depth_abs_rel_on_reference_weights():
+    """bf16 against fp32 on the reference's seed-0 weights (tools/torch_ref,
+    the weights parity_abs_rel uses), fused tail on: depth abs-rel <= 1e-3,
+    the budget of BASELINE.json."""
+    from scenedepthestimation_tpu_torch import benchmark
+
+    torch.manual_seed(0)
+    state = benchmark._torch_ref().MonoDepthNet().state_dict()
+    state = {k: v for k, v in state.items() if not k.endswith("num_batches_tracked")}
+    frames = np.random.default_rng(5).integers(0, 256, (2, *TAIL_HW, 3), dtype=np.uint8)
+    depth = {dt: _port_tail_predict(_tail_cfg(configs, dt), state, frames)["depth"]
+             for dt in ("float32", "bfloat16")}
+    rel = _abs_rel(depth["bfloat16"], depth["float32"])
+    assert 0 < rel <= 1e-3, rel
+
+
+def test_predict_batch_equals_mono_forward_per_batch(port_predictor):
+    rng = np.random.default_rng(6)
+    batches = [rng.integers(0, 256, (b, *SRC_HW, 3), dtype=np.uint8) for b in (2, 1)]
+    outs = api.predict_batch(port_predictor, iter(batches))
+    assert len(outs) == 2
+    for out, frames in zip(outs, batches):
+        want = port_predictor.mono_forward(torch.from_numpy(frames))
+        assert sorted(out) == ["depth", "disp"]
+        for k in ("disp", "depth"):
+            assert isinstance(out[k], np.ndarray) and out[k].shape == (len(frames), *SRC_HW)
+            np.testing.assert_array_equal(out[k], want[k].numpy())
+    with pytest.raises(NotImplementedError, match="mesh"):
+        api.predict_batch(port_predictor, batches, mesh=object())
+
+
+@pytest.mark.parametrize(
+    "config,section,dtype",
+    [("mono_kitti_384x1152_bench", "mono", "bfloat16"), ("stereo_256x512_b4", "stereo", "float32")],
+    ids=["mono_bench", "stereo"],
+)
+def test_run_bench_on_cpu_returns_jax_keys(config, section, dtype):
+    """run_bench at 64x128, b2, one iteration on the CPU: the keys of the
+    JAX package's run_bench (scenedepthestimation_tpu/benchmark.py:194-205)
+    and a finite checksum; the mono bench with the fused tail on."""
+    from scenedepthestimation_tpu_torch import benchmark
+    from scenedepthestimation_tpu_torch.ops import fused_tail
+
+    fused_tail.set_use_fused_tail(True)
+    try:
+        r = benchmark.run_bench(
+            config, batch_size=2, iters=1, warmup=1, device="cpu",
+            overrides={f"{section}.height": TAIL_HW[0], f"{section}.width": TAIL_HW[1]},
+        )
+    finally:
+        fused_tail.set_use_fused_tail(None)
+    assert sorted(r) == sorted([
+        "metric", "value", "unit", "vs_baseline", "batch_size", "dtype", "iters",
+        "device", "reference_cpu_fps", "checksum",
+    ])
+    assert r["metric"] == f"{section}_frames_per_sec_per_chip_64x128"
+    assert (r["batch_size"], r["dtype"], r["iters"], r["device"]) == (2, dtype, 1, "cpu")
+    assert np.isfinite(r["checksum"]) and r["checksum"] > 0 and r["value"] > 0
+
+
+def test_parity_abs_rel_fp32_on_cpu():
+    from scenedepthestimation_tpu_torch import benchmark
+
+    rel = benchmark.parity_abs_rel("float32", device="cpu")
+    assert 0 <= rel < 1e-5, rel

@@ -206,3 +206,45 @@ def test_load_state_rejects_mismatch(tmp_path):
         weights.load_state(net, state)
     with pytest.raises(FileNotFoundError, match="encoder.pth"):
         weights.load_torch_dir(str(tmp_path))
+
+
+def test_decoder_fused_tail_matches_jax_collapsed_v2():
+    """DepthDecoder with the fused tail on vs the JAX collapsed decoder with
+    set_use_fused_tail("v2") (kernel 4 in interpret mode) on the same
+    features at 64x128 and full widths: scale-0 disparity atol 1e-5, the
+    JAX package's fused-tail tolerance. With the switch off the port's
+    decoder gives the same numbers exactly (both take the plain versions
+    on the CPU)."""
+    from scenedepthestimation_tpu.ops import collapsed
+    from scenedepthestimation_tpu_torch.ops import fused_tail
+
+    enc_ch = (64, 64, 128, 256, 512)
+    feats = _features(np.random.default_rng(9), 2, 64, 128, enc_ch)
+    jfeats = [jnp.asarray(f) for f in feats]
+    jdec = jax_dec.DepthDecoder()
+    params = _numpy_tree(jdec.init(jax.random.PRNGKey(4), jfeats))
+    rng = np.random.default_rng(10)
+    params = jax.tree_util.tree_map(
+        lambda v: v + rng.normal(0, 0.05, v.shape).astype(np.float32) if v.ndim == 1 else v,
+        params,
+    )
+    collapsed.set_use_fused_tail("v2")
+    try:
+        want = np.asarray(collapsed.collapsed_mono_decoder(params["params"], jfeats))
+    finally:
+        collapsed.set_use_fused_tail(None)
+
+    tdec = DepthDecoder(num_ch_enc=enc_ch).eval()
+    weights.load_state(tdec, weights.from_jax_variables(params))
+    tfeats = [torch.from_numpy(f) for f in feats]
+    fused_tail.set_use_fused_tail("v2")
+    try:
+        with torch.no_grad():
+            got = tdec(tfeats, scales=(0,))[0]
+    finally:
+        fused_tail.set_use_fused_tail(None)
+    with torch.no_grad():
+        unfused = tdec(tfeats, scales=(0,))[0]
+    assert got.shape == want.shape == (2, 64, 128, 1)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    assert torch.equal(got, unfused)

@@ -24,6 +24,7 @@ from scenedepthestimation_tpu.ops.pallas.upsample_concat import upsample_concat_
 from scenedepthestimation_tpu_torch.configs import PreprocessConfig
 from scenedepthestimation_tpu_torch.data import io as port_io
 from scenedepthestimation_tpu_torch.ops import disp_to_depth as port_d2d
+from scenedepthestimation_tpu_torch.ops import fused_tail
 from scenedepthestimation_tpu_torch.ops import preprocess as port_pre
 from scenedepthestimation_tpu_torch.ops import upsample as port_up
 from scenedepthestimation_tpu_torch.ops.cuda import _build, conv_block, upsample_concat
@@ -197,3 +198,98 @@ def test_load_image_matches_jax(mode, tmp_path):
     assert got.dtype == np.uint8 and got.shape == (37, 53, 3)
     np.testing.assert_array_equal(got, jax_io.load_image(str(path)))
     np.testing.assert_array_equal(port_io.decode_image(path.read_bytes()), got)
+
+
+def _tail_inputs(rng, b, h, w, c1, c0, c0o):
+    y1 = rng.normal(size=(b, h, w, c1)).astype(np.float32)
+    k00 = (rng.normal(size=(3, 3, c1, c0)) * 0.2).astype(np.float32)
+    b00 = rng.normal(size=(c0,)).astype(np.float32)
+    k01 = (rng.normal(size=(3, 3, c0, c0o)) * 0.2).astype(np.float32)
+    b01 = rng.normal(size=(c0o,)).astype(np.float32)
+    return y1, k00, b00, k01, b01
+
+
+def _torch_tail_args(y1, k00, b00, k01, b01, dtype=torch.float32):
+    """Numpy NHWC/HWIO inputs -> the port's (y1, w00, b00, w01, b01)."""
+    def oihw(k):
+        return torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1))).to(dtype)
+
+    return (torch.from_numpy(y1).to(dtype), oihw(k00), torch.from_numpy(b00).to(dtype),
+            oihw(k01), torch.from_numpy(b01).to(dtype))
+
+
+@pytest.mark.parametrize(
+    "h4,w4,dtype",
+    [(8, 16, "float32"), (12, 8, "float32"), (8, 16, "bfloat16")],
+)
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_fused_tail_plain_matches_pallas_kernels(version, h4, w4, dtype):
+    """fused_tail_plain vs TPU kernels 3 (fused_tail_pallas) and 4
+    (fused_tail_pallas_v2) in interpret mode, fed the packed operands as
+    tests/test_fused_tail.py builds them, their double-packed output
+    unpacked with two depth_to_space. fp32: atol 1e-5, the JAX package's
+    own tolerance; bf16: atol one bf16 spacing at the output's largest
+    magnitude (both round z and y0 from fp32 sums taken in other orders,
+    and a flipped rounding of z moves the outputs near zero by as much as
+    those far from it)."""
+    from scenedepthestimation_tpu.ops import collapsed, packed
+    from scenedepthestimation_tpu.ops.pallas.fused_tail import fused_tail_pallas
+    from scenedepthestimation_tpu.ops.pallas.fused_tail_v2 import fused_tail_pallas_v2
+
+    kernel = {"v1": fused_tail_pallas, "v2": fused_tail_pallas_v2}[version]
+    c1, c0 = 12, 4
+    y1, k00, b00, k01, b01 = _tail_inputs(np.random.default_rng(0), 2, 2 * h4, 2 * w4, c1, c0, c0)
+    jdt = jnp.dtype(dtype)
+    k00j, k01j = jnp.asarray(k00).astype(jdt), jnp.asarray(k01).astype(jdt)
+    y0pp = kernel(
+        packed.space_to_depth(jnp.asarray(y1).astype(jdt)),
+        packed.pack_conv3x3_kernel(k00j),
+        jnp.tile(jnp.asarray(b00).astype(jdt), 4),
+        packed.pack_conv3x3_kernel(collapsed.collapse_upsample_conv_kernel(k01j)),
+        jnp.tile(jnp.asarray(b01).astype(jdt), 16),
+        interpret=True,
+    )
+    want = np.asarray(packed.depth_to_space(packed.depth_to_space(y0pp)).astype(jnp.float32))
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    got = fused_tail.fused_tail_plain(*_torch_tail_args(y1, k00, b00, k01, b01, tdt))
+    assert got.dtype == tdt and tuple(got.shape) == want.shape == (2, 4 * h4, 4 * w4, c0)
+    got = _np(got.float())
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-5)
+    else:
+        spacing = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+        np.testing.assert_allclose(got, want, atol=spacing, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "shape", [(2, 5, 7, 3, 5, 6), (1, 2, 3, 12, 5, 7), (1, 2, 2, 8, 4, 4)],
+    ids=["odd-w", "h2-odd-w", "h2-w2"],
+)
+def test_fused_tail_plain_equals_unfused_chain(shape):
+    """The plain version is the decoder's unfused level 0 exactly in fp32:
+    conv3x3 -> upsample2x -> conv3x3, at h = 2, w = 2 and odd w (the
+    reflect border's smallest cases); and the CPU wrapper takes it and
+    launches nothing."""
+    b, h, w, c1, c0, c0o = shape
+    args = _torch_tail_args(*_tail_inputs(np.random.default_rng(1), *shape))
+    y1, w00, b00, w01, b01 = args
+    want = conv_block.conv3x3(port_up.upsample2x(conv_block.conv3x3(y1, w00, b00)), w01, b01)
+    _build.LAUNCHES.clear()
+    got = fused_tail.fused_tail(*args)
+    assert not _build.LAUNCHES
+    assert tuple(got.shape) == (b, 2 * h, 2 * w, c0o)
+    assert torch.equal(got, want)
+    assert torch.equal(fused_tail.fused_tail_plain(*args), want)
+
+
+def test_fused_tail_rejects_bad_input_and_flags():
+    args = _torch_tail_args(*_tail_inputs(np.random.default_rng(2), 1, 4, 4, 3, 2, 2))
+    with pytest.raises(ValueError, match="w00 must be"):
+        fused_tail.fused_tail(args[0], args[3], *args[2:])
+    with pytest.raises(ValueError, match="h, w >= 2"):
+        fused_tail.fused_tail(args[0][:, :1], *args[1:])
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        fused_tail.fused_tail(args[0].to("meta"), *args[1:])
+    with pytest.raises(ValueError, match="flag must be"):
+        fused_tail.set_use_fused_tail("v3")
+    assert not fused_tail.enabled()  # off by default, as in the JAX package
