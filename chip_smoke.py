@@ -64,7 +64,22 @@ Phases, one line each (more for the per-shape kernel checks):
      against the card's fp32 run (seeded weights at b128, the reference's
      seed-0 weights at b8);
  14. bench.py's line for the port: frames/s with parity_abs_rel in fp32
-     (<= 1e-4) and bf16 (<= 1e-3).
+     (<= 1e-4) and bf16 (<= 1e-3);
+ 15. Winograd kernel (kernel 5): winograd_conv3x3_phases on each of the 13
+     stride-1 BasicBlock convs of one b128 bf16 folded bench forward, on the
+     inputs that forward gave it (captured as in phase 13), at config 1's four
+     stage shapes in fp32 with and without the residual, and at off-path
+     shapes (C, Co off 16 and below 8, odd Co, ragged tile counts) in both
+     dtypes, each against its plain version; the kernel's, the plain
+     version's and cuDNN's times, the bound and the ptxas lines;
+ 16. the folded path: run_bench with fold_bn off and on at b128 (frames/s,
+     launches); on seeded weights with random BatchNorm terms, the folded
+     fp32 encoder against the unfolded one, the bf16 folded encoder on cuDNN
+     and on kernel 5 (its 13 stride-1 convs swapped onto the kernel, here
+     only) against the fp32 folded encoder, and each one's depth abs-rel
+     against the card's fp32 folded run at b128 (<= 2.5e-3); a profile of a
+     folded b128 forward; parity_abs_rel with fold_bn in fp32 (<= 1e-4) and
+     bf16 (<= 1e-3).
 Then one JSON line of per-kernel results (with each kernel's bound on
 this card and, where one PyTorch call computes the same function, that
 call's time) and, last, the ok line.
@@ -1235,10 +1250,346 @@ def phase_parity(benchmark, fts, bench: dict) -> None:
     print(f"[14 bench line] {json.dumps(line)}")
 
 
+# Kernel 5. (stage, H, W, C) of the ResNet-18 encoder's stride-1 3x3 convs
+# in mono_kitti_192x640_fp32 at b1, each with and without the residual.
+WINO_FP32_SHAPES = [("layer1", 48, 160, 64), ("layer2", 24, 80, 128),
+                    ("layer3", 12, 40, 256), ("layer4", 6, 20, 512)]
+# (B, H, W, C, Co, residual) off the main path: C and Co below 8 (scalar
+# loads, staging and stores), C and Co off 16, one tile, odd Co with Hp = 5,
+# Wp = 17, a tile count (15 x 23) that no block size divides.
+WINO_EXTRA = [(2, 6, 10, 5, 7, True), (3, 14, 22, 24, 40, False), (1, 2, 2, 16, 16, True),
+              (2, 10, 34, 40, 17, True), (1, 30, 46, 64, 96, True)]
+# The stage of each of the 13 stride-1 convs of the folded ResNet-18, in
+# call order: each block's conv1 where it has stride 1, then its conv2.
+WINO_BENCH_NAMES = ["layer1_0.conv1", "layer1_0.conv2", "layer1_1.conv1", "layer1_1.conv2",
+                    "layer2_0.conv2", "layer2_1.conv1", "layer2_1.conv2",
+                    "layer3_0.conv2", "layer3_1.conv1", "layer3_1.conv2",
+                    "layer4_0.conv2", "layer4_1.conv1", "layer4_1.conv2"]
+# Card vs card, the kernel-routed folded encoder against the cuDNN one: each
+# level's max|err| against the fp32 folded encoder on the same input within
+# twice the cuDNN bf16 encoder's (the kernel rounds each conv once, after
+# bias and residual; cuDNN rounds the conv, the residual add and the ReLU).
+WINO_ROUTE_FACTOR = 2.0
+
+
+def _wino_inputs(wino_ops, x, weight, bias, residual, dtype):
+    """The kernel's operands for one conv: phases of NHWC x (and of the
+    residual), U in the compute dtype, the bias in fp32."""
+    ph = wino_ops.space_to_phases(x)
+    rph = None if residual is None else wino_ops.space_to_phases(residual)
+    u = wino_ops.transform_weights(weight).to(dtype)
+    return ph, u, bias.float(), rph
+
+
+def _wino_case(wino, args, tol_kind):
+    """One winograd kernel call against its plain version on the card. fp32:
+    atol 1e-4 + rtol 1e-4 (sums in another order); bf16: 1e-2 x max|ref|
+    (both round the same bf16 input transform; one output rounding)."""
+    got = wino.winograd_conv3x3_phases(*args)
+    ref = wino.winograd_conv3x3_phases_plain(*args)
+    torch.cuda.synchronize()
+    err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
+    if tol_kind == "fp32":
+        ok = all(bool(((g.float() - r.float()).abs() <= 1e-4 + 1e-4 * r.float().abs()).all())
+                 for g, r in zip(got, ref))
+        tol = "atol 1e-4 + rtol 1e-4"
+    else:
+        ref_max = max(r.float().abs().max().item() for r in ref)
+        ok, tol = err <= 1e-2 * ref_max, f"1e-2 x max|ref| = {1e-2 * ref_max:.3g}"
+    return err, tol, ok
+
+
+def _wino_bound(args):
+    """Bound of one call: phases (+ residual) in, U and bias in, phases out,
+    each once; the 16 Winograd products 2 B Hp Wp 16 C Co. Also the direct
+    conv's operations (36/16 of them)."""
+    ph, u, bias, rph = args[:4]
+    b, hp, wp, c = ph[0].shape
+    co = u.shape[2]
+    nb = nbytes(*ph, u, bias) + (0 if rph is None else nbytes(*rph)) + 4 * b * hp * wp * co * ph[0].element_size()
+    ops = 2 * b * hp * wp * 16 * c * co
+    return nb, ops, ops * 36 / 16
+
+
+def _wino_library_ms(x_nchw, weight, bias, runs) -> float:
+    """cuDNN's conv with bias (F.conv2d, zero pad 1, channels-last) on the
+    same input, without residual or ReLU: row 1's convention."""
+    import torch.nn.functional as F
+
+    wc = weight.contiguous(memory_format=torch.channels_last)
+    bb = bias.to(x_nchw.dtype)
+    return time_ms(lambda: F.conv2d(x_nchw, wc, bb, 1, 1), runs=runs)
+
+
+def _wino_timed(wino, tag, args, x_nchw, weight, kind, runs, r=None):
+    """Kernel, plain and cuDNN times and the bound of one call, printed; and
+    summed into r when given."""
+    err, tol, ok = _wino_case(wino, args, kind)
+    ms = time_ms(lambda: wino.winograd_conv3x3_phases(*args), runs=runs)
+    plain_ms = time_ms(lambda: wino.winograd_conv3x3_phases_plain(*args), runs=max(3, runs // 2))
+    lib_ms = _wino_library_ms(x_nchw, weight, args[2], runs)
+    nb, ops, direct = _wino_bound(args)
+    t, by = bound_ms(nb, ops, kind)
+    b, hp, wp, c = args[0][0].shape
+    print(f"[15 winograd {kind}] {tag} (B, H, W, C) {(b, 2 * hp, 2 * wp, c)} -> {args[1].shape[2]}"
+          f"{' + residual' if args[3] is not None else ''}: max|err| {err:.3g} ({tol}) kernel "
+          f"{ms:.4f} ms plain {plain_ms:.4f} ms cuDNN {lib_ms:.4f} ms bound {t:.4f} ms ({by}: "
+          f"{nb / 1e6:.1f} MB, {ops / 1e9:.1f} GFLOP of Winograd products; the direct conv "
+          f"{direct / 1e9:.1f})")
+    check(ok, f"winograd {kind} {tag} disagrees with its plain version")
+    if r is not None:
+        r["err"] = max(r["err"], err)
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["library_ms"] += lib_ms
+        add_bound(r, nb, ops, kind)
+
+
+def _winograd_route(wino_ops):
+    """The folded encoder's conv3x3_bias_relu on the winograd kernel: NCHW
+    views of channels-last memory in and out, NHWC to the kernel."""
+    def nhwc(t):
+        return None if t is None else t.permute(0, 2, 3, 1)
+
+    def conv(x, weight, bias, residual=None):
+        return wino_ops.winograd_conv3x3(nhwc(x), weight, bias, nhwc(residual)).permute(0, 3, 1, 2)
+
+    return conv
+
+
+def _randomize_bn(model, seed: int) -> None:
+    """BatchNorm terms far from the seeded init's identity (scale U(0.5,
+    1.5), shift N(0, 0.3), mean N(0, 0.5), var U(0.2, 2), as the JAX
+    package's tests/test_folded.py draws them), so a fold that mixes them
+    up shows."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                for t, draw in ((m.weight, lambda s: rng.uniform(0.5, 1.5, s)),
+                                (m.bias, lambda s: rng.normal(0.0, 0.3, s)),
+                                (m.running_mean, lambda s: rng.normal(0.0, 0.5, s)),
+                                (m.running_var, lambda s: rng.uniform(0.2, 2.0, s))):
+                    t.copy_(torch.from_numpy(draw(tuple(t.shape)).astype(np.float32)))
+
+
+def _seeded_folded(sdt, cfg, dtype: str, fold: bool = True):
+    """A predictor of cfg in dtype on the card: seed-0 weights with random
+    BatchNorm terms, the encoder folded when ``fold``."""
+    import dataclasses
+
+    from scenedepthestimation_tpu_torch.models.monodepth import MonoDepthNet, init_parameters
+
+    c = dataclasses.replace(cfg, dtype=dtype, mono=dataclasses.replace(cfg.mono, fold_bn=fold))
+    model = MonoDepthNet(c.mono)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    _randomize_bn(model, 6)
+    return sdt.Predictor(c, model, "cuda")
+
+
+@torch.inference_mode()  # the captured weights are parameters, the activations inference tensors
+def phase_winograd_kernels(sdt, wino_ops, wino, folded_mod, _build) -> dict:
+    """Kernel 5: the 13 stride-1 conv calls of one b128 bf16 folded bench
+    forward on that forward's inputs, config 1's stage shapes in fp32 and
+    off-path shapes, each against its plain version."""
+    with open(os.path.join(os.path.dirname(_build.library_path()), "nvcc.log")) as f:
+        text = f.read()
+    ptxas = "; ".join(ptxas_report(text, k, static_smem=False)
+                      for k in ("winograd_tc_kernel", "winograd_fp32_kernel"))
+    cfg = sdt.configs.get(BENCH_CONFIG)
+    p = _seeded_folded(sdt, cfg, "bfloat16")
+    frames = np.random.default_rng(0).integers(0, 256, (BENCH_B, cfg.height, cfg.width, 3), dtype=np.uint8)
+    img = torch.from_numpy(frames).cuda()
+    calls = _capture(lambda: p.mono_forward(img), (folded_mod, "conv3x3_bias_relu"))["conv3x3_bias_relu"]
+    check(len(calls) == 13, f"folded bench forward: {len(calls)} stride-1 conv calls, want 13")
+    del img
+    res = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    for name, (args, _) in zip(WINO_BENCH_NAMES, calls):
+        x, weight, bias = args[:3]
+        residual = args[3] if len(args) > 3 else None
+        nhwc = (lambda t: None if t is None else t.permute(0, 2, 3, 1))
+        kargs = _wino_inputs(wino_ops, nhwc(x), weight, bias, nhwc(residual), torch.bfloat16)
+        _wino_timed(wino, f"bench {name}", kargs + (True,), x, weight, "bf16",
+                    BENCH_KERNEL_RUNS, res)
+        del kargs
+    del calls, p
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rand(shape, scale, dtype):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    for stage, h, w, c in WINO_FP32_SHAPES:
+        for with_res in (False, True):
+            x = rand((1, h, w, c), 1.0, torch.float32)
+            weight = rand((c, c, 3, 3), (9 * c) ** -0.5, torch.float32)
+            r = rand((1, h, w, c), 1.0, torch.float32) if with_res else None
+            kargs = _wino_inputs(wino_ops, x, weight, rand((c,), 0.1, torch.float32), r, torch.float32)
+            _wino_timed(wino, f"config1 {stage}", kargs + (True,), x.permute(0, 3, 1, 2),
+                        weight, "fp32", RUNS)
+    for b, h, w, c, co, with_res in WINO_EXTRA:
+        for dtype, kind in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            x = rand((b, h, w, c), 1.0, dtype)
+            r = rand((b, h, w, co), 1.0, dtype) if with_res else None
+            kargs = _wino_inputs(wino_ops, x, rand((co, c, 3, 3), (9 * c) ** -0.5, dtype),
+                                 rand((co,), 0.1, torch.float32), r, dtype)
+            for relu in (False, True):
+                err, tol, ok = _wino_case(wino, kargs + (relu,), kind)
+                print(f"[15 winograd {kind} extra] {(b, h, w, c)} -> {co} residual {with_res} "
+                      f"relu {relu}: max|err| {err:.3g} ({tol})")
+                check(ok, f"winograd {kind} {(b, h, w, c, co)} disagrees with its plain version")
+    # The NHWC wrapper writes the output phases in place; vs the direct conv.
+    x = rand((2, 10, 34, 40), 1.0, torch.float32)
+    weight = rand((17, 40, 3, 3), 40 ** -0.5, torch.float32)
+    bias = rand((17,), 0.1, torch.float32)
+    r = rand((2, 10, 34, 17), 1.0, torch.float32)
+    err = (wino_ops.winograd_conv3x3(x, weight, bias, r)
+           - wino_ops.conv3x3_reference(x, weight, bias, r)).abs().max().item()
+    print(f"[15 winograd fp32] winograd_conv3x3 (NHWC, in place) vs conv3x3_reference (cuDNN, "
+          f"no TF32): max|err| {err:.3g} (atol 1e-4)")
+    check(err <= 1e-4, "winograd_conv3x3 disagrees with the direct conv")
+    by = max(res["bound_parts"], key=res["bound_parts"].get)
+    print(f"[15 winograd] the bench forward's 13 calls: kernel {res['ms']:.4f} ms, plain "
+          f"{res['plain_ms']:.4f}, cuDNN {res['library_ms']:.4f}, bound {res['bound_ms']:.4f} "
+          f"({by}); {ptxas}")
+    return res
+
+
+def _enc_errs(feats, refs):
+    return [(f.float() - r.float()).abs().max().item() for f, r in zip(feats, refs)]
+
+
+def phase_folded(sdt, benchmark, wino_ops, folded_mod, _build) -> dict:
+    """The folded path: run_bench with fold_bn off and on, the folded
+    encoder against the unfolded one, the folded encoder on kernel 5 against
+    the cuDNN one, the profile of a folded forward, parity_abs_rel."""
+    from scenedepthestimation_tpu_torch.ops.preprocess import preprocess
+
+    forwards = BENCH_WARMUP + BENCH_ITERS
+    fps = {}
+    for fold in (False, True):
+        _build.LAUNCHES.clear()
+        r = benchmark.run_bench(BENCH_CONFIG, iters=BENCH_ITERS, warmup=BENCH_WARMUP,
+                                overrides={"mono.fold_bn": fold})
+        launches = dict(_build.LAUNCHES)
+        want = {"fused_tail": 1, "conv3x3": 9, "upsample_concat": 4}
+        check(launches == {k: v * forwards for k, v in want.items()},
+              f"fold_bn {fold}: {launches} launches over {forwards} forwards, want {want} each")
+        check(np.isfinite(r["checksum"]) and r["checksum"] > 0, f"bench checksum {r['checksum']}")
+        fps[fold] = r["value"]
+
+    cfg = sdt.configs.get(BENCH_CONFIG)
+    frames = np.random.default_rng(0).integers(0, 256, (BENCH_B, cfg.height, cfg.width, 3), dtype=np.uint8)
+    img = torch.from_numpy(frames).cuda()
+    net_hw = (cfg.height, cfg.width)
+    nf = 16  # frames for the feature comparisons
+    x32 = preprocess(img[:nf], net_hw, cfg.pre, compute_dtype=torch.float32)
+    x16 = x32.bfloat16()
+
+    # fp32: the folded encoder against the unfolded one on the same weights.
+    p32 = _seeded_folded(sdt, cfg, "float32")
+    with torch.inference_mode():
+        f32 = p32.model.encoder(x32)
+        unf = _seeded_folded(sdt, cfg, "float32", fold=False)
+        u32 = unf.model.encoder(x32)
+    del unf
+    fold_errs = _enc_errs(f32, u32)
+    ref_max = [r.abs().max().item() for r in u32]
+    del u32
+    check(all(e <= 1e-4 * m for e, m in zip(fold_errs, ref_max)),
+          f"folded vs unfolded fp32 features {fold_errs} (max|ref| {ref_max})")
+    depth32 = p32.mono_forward(img)["depth"]
+    del p32
+    torch.cuda.empty_cache()
+
+    # bf16: the cuDNN folded encoder and the same on kernel 5, each against
+    # the fp32 folded features and depth.
+    p16 = _seeded_folded(sdt, cfg, "bfloat16")
+
+    def abs_rel(a, b):
+        return float(torch.mean(torch.abs(a - b) / b))
+
+    out = {}
+    saved = folded_mod.conv3x3_bias_relu
+    for route in ("cudnn", "winograd"):
+        if route == "winograd":
+            folded_mod.conv3x3_bias_relu = _winograd_route(wino_ops)
+        try:
+            with torch.inference_mode():
+                feats = p16.model.encoder(x16)
+            p16.mono_forward(img)  # warm-up
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            depth = p16.mono_forward(img)["depth"]
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(3):
+                p16.mono_forward(img)
+            end.record()
+            end.synchronize()
+            if route == "winograd":
+                prof_route = _profile(lambda: p16.mono_forward(img), n=1)
+        finally:
+            folded_mod.conv3x3_bias_relu = saved
+        out[route] = {"errs": _enc_errs(feats, f32), "launches": launches,
+                      "abs_rel": abs_rel(depth, depth32), "ms": start.elapsed_time(end) / 3,
+                      "feats": feats}
+        check(depth.shape == (BENCH_B, cfg.height, cfg.width) and bool(torch.isfinite(depth).all()),
+              f"{route} folded bf16 depth not finite")
+        check(out[route]["abs_rel"] <= SEEDED_ABS_REL,
+              f"{route} folded bf16 vs fp32 depth abs-rel {out[route]['abs_rel']:.3g} > {SEEDED_ABS_REL}")
+    check(out["winograd"]["launches"].get("winograd") == 13,
+          f"kernel-routed folded forward launches {out['winograd']['launches']}, want 13 winograd")
+    check(out["cudnn"]["launches"].get("winograd", 0) == 0, "the served folded path launched winograd")
+    route_errs = _enc_errs(out["winograd"]["feats"], out["cudnn"]["feats"])
+    for lvl, (ew, ec) in enumerate(zip(out["winograd"]["errs"], out["cudnn"]["errs"])):
+        check(ew <= WINO_ROUTE_FACTOR * ec,
+              f"level {lvl}: kernel-routed bf16 features {ew:.3g} from fp32, cuDNN's {ec:.3g}")
+    for r in out.values():
+        del r["feats"]
+    del f32, x16, x32
+    torch.cuda.empty_cache()
+    prof = _profile(lambda: p16.mono_forward(img), n=2)
+    del p16, img
+    torch.cuda.empty_cache()
+
+    fp32 = benchmark.parity_abs_rel("float32", overrides={"mono.fold_bn": True})
+    bf16 = benchmark.parity_abs_rel("bfloat16", overrides={"mono.fold_bn": True})
+    check(fp32 <= 1e-4, f"parity_abs_rel fp32 fold_bn {fp32:.3g} > 1e-4")
+    check(bf16 <= ABS_REL_BUDGET, f"parity_abs_rel bf16 fold_bn {bf16:.3g} > {ABS_REL_BUDGET}")
+
+    print(f"[16 folded] {BENCH_CONFIG} b{BENCH_B} bf16, run_bench ({BENCH_WARMUP} warmup + "
+          f"{BENCH_ITERS} timed forwards, fused tail on): frames/s fold_bn off {fps[False]}, on "
+          f"{fps[True]} (no claim); launches per forward either way {want}, 0 winograd")
+    print(f"[16 folded] seeded weights with random BN terms: folded vs unfolded fp32 encoder "
+          f"features b{nf}, max|err| per level "
+          + ", ".join(f"{e:.3g}" for e in fold_errs)
+          + " (<= 1e-4 x max|ref| = " + ", ".join(f"{1e-4 * m:.3g}" for m in ref_max) + ")")
+    for route, r in out.items():
+        print(f"[16 folded] bf16 folded encoder on {route}: features vs the fp32 folded encoder "
+              f"max|err| per level " + ", ".join(f"{e:.3g}" for e in r["errs"])
+              + f"; depth abs-rel vs the card's fp32 folded run b{BENCH_B} {r['abs_rel']:.3g} "
+              f"(<= {SEEDED_ABS_REL:g}); launches {r['launches']}; device ms per forward "
+              f"{r['ms']:.3f} (CUDA events, 3 forwards)")
+    print(f"[16 folded] winograd route vs cuDNN route, bf16 features max|err| per level "
+          + ", ".join(f"{e:.3g}" for e in route_errs)
+          + f" (each route's error vs fp32: the kernel's within {WINO_ROUTE_FACTOR:g}x cuDNN's)")
+    print(f"[16 folded] parity_abs_rel with fold_bn: fp32 {fp32:.3g} (<= 1e-4), bf16 "
+          f"{bf16:.3g} (<= {ABS_REL_BUDGET:g})")
+    print(f"[16 folded profile] one b{BENCH_B} bf16 forward, fold_bn on, fused tail on: {prof}")
+    print(f"[16 folded profile] the same with the 13 stride-1 convs on kernel 5: {prof_route}")
+    return {"launches": out["winograd"]["launches"]["winograd"]}
+
+
 def main() -> int:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     import scenedepthestimation_tpu_torch as sdt
     from scenedepthestimation_tpu_torch import benchmark, serve
+    from scenedepthestimation_tpu_torch.models import folded as folded_mod
+    from scenedepthestimation_tpu_torch.ops import winograd as wino_ops
     from scenedepthestimation_tpu_torch.ops import fused_tail as fts
     from scenedepthestimation_tpu_torch.ops import soft_argmin as sa_ops
     from scenedepthestimation_tpu_torch.ops.cuda import _build, conv_block
@@ -1247,6 +1598,7 @@ def main() -> int:
     from scenedepthestimation_tpu_torch.ops.cuda import fused_tail as ft
     from scenedepthestimation_tpu_torch.ops.cuda import soft_argmin as sa
     from scenedepthestimation_tpu_torch.ops.cuda import upsample_concat as upcat
+    from scenedepthestimation_tpu_torch.ops.cuda import winograd as wino
 
     phase_device()
     phase_build(_build)
@@ -1262,13 +1614,16 @@ def main() -> int:
     tail_res = phase_tail_kernels(ft, conv_block, _build)
     bench = phase_bench(sdt, benchmark, fts, _build, conv_block, upcat)
     phase_parity(benchmark, fts, bench)
+    wino_res = phase_winograd_kernels(sdt, wino_ops, wino, folded_mod, _build)
+    folded_res = phase_folded(sdt, benchmark, wino_ops, folded_mod, _build)
 
     # Each entry covers the main paths that run the kernel: mono b1 (fp32),
     # stereo b4 (fp32), config-5 stereo b16 (bf16) and the mono bench b128
-    # (bf16, fused tail on). ms / plain_ms / bound_ms / library_ms are
-    # summed over the kernel's calls on those paths, i.e. its device time
-    # per forward of each path, added up; launches are the counts per
-    # forward of those paths; max_abs_err is over the same calls.
+    # (bf16, fused tail on); winograd's is the folded bench encoder's 13
+    # stride-1 convs (bf16, phases 15-16). ms / plain_ms / bound_ms /
+    # library_ms are summed over the kernel's calls on those paths, i.e. its
+    # device time per forward of each path, added up; launches are the
+    # counts per forward of those paths; max_abs_err is over the same calls.
     def merged(*parts):
         out = {"err": max(r["err"] for r in parts), "ms": 0.0, "plain_ms": 0.0,
                "bound_ms": 0.0, "bound_parts": {}}
@@ -1291,6 +1646,7 @@ def main() -> int:
     res["correlation_gram"] = bf16_res["correlation_gram"]
     res["soft_argmin"] = merged(stereo_res["soft_argmin"], bf16_res["soft_argmin"])
     res["fused_tail"] = tail_res
+    res["winograd"] = wino_res
     launches = {
         "conv3x3": launches["conv3x3"] + bench["launches"]["conv3x3"],
         "upsample_concat": launches["upsample_concat"] + stereo_launches["upsample_concat"]
@@ -1299,6 +1655,7 @@ def main() -> int:
         "correlation_gram": bf16_launches["correlation_gram"],
         "soft_argmin": stereo_launches["soft_argmin"] + bf16_launches["soft_argmin"],
         "fused_tail": bench["launches"]["fused_tail"],
+        "winograd": folded_res["launches"],
     }
     meta = {
         "conv3x3": ("scenedepthestimation_tpu_torch/csrc/conv_block.cu",
@@ -1326,6 +1683,13 @@ def main() -> int:
                        "scenedepthestimation_tpu/ops/pallas/fused_tail_v2.py:219",
                        f"{BENCH_CONFIG} b128 level 0 (128, 192, 576, 32) -> (128, 384, 1152, "
                        "16) bf16; library_ms is the three-stage cuDNN chain (no one call)"),
+        "winograd": ("scenedepthestimation_tpu_torch/csrc/winograd.cu",
+                     "scenedepthestimation_tpu/ops/pallas/winograd.py:246",
+                     f"{BENCH_CONFIG} b128 folded encoder (fold_bn), its 13 stride-1 BasicBlock "
+                     "convs on one forward's inputs, bf16; launches counted on the folded "
+                     "forward with those convs routed onto the kernel (phase 16); the served "
+                     "paths launch it 0 times, as in the JAX package; library_ms is cuDNN's "
+                     "F.conv2d with bias"),
     }
     kernels = []
     for name, (src, rep, shapes) in meta.items():

@@ -28,7 +28,7 @@ import torch
 
 from scenedepthestimation_tpu_torch import configs
 from scenedepthestimation_tpu_torch.configs import RunConfig
-from scenedepthestimation_tpu_torch.models import monodepth, stereo
+from scenedepthestimation_tpu_torch.models import folded, monodepth, stereo
 from scenedepthestimation_tpu_torch.ops.disp_to_depth import depth_from_disparity, disp_to_depth
 from scenedepthestimation_tpu_torch.ops.preprocess import preprocess, resize_bilinear
 from scenedepthestimation_tpu_torch.utils import weights as weights_io
@@ -56,6 +56,10 @@ class Predictor:
     """The network of one pipeline on one device, and its end-to-end
     program (:meth:`mono_forward` or :meth:`stereo_forward`).
 
+    A mono preset with ``fold_bn`` runs the BN-folded encoder
+    (``models/folded.py``), folded here in fp32 from the model's weights;
+    ``fast_borders`` raises ``NotImplementedError``.
+
     On CUDA with a float32 preset it turns TF32 off for cuDNN convolutions
     and matmuls (``torch.backends.cudnn.allow_tf32`` and
     ``torch.backends.cuda.matmul.allow_tf32``, process-wide): otherwise the
@@ -65,12 +69,26 @@ class Predictor:
     def __init__(self, cfg: RunConfig, model: torch.nn.Module, device: torch.device):
         if cfg.pipeline not in ("mono", "stereo"):
             raise ValueError(f"unknown pipeline {cfg.pipeline!r}")
+        if cfg.pipeline == "mono" and cfg.mono.fast_borders:
+            raise NotImplementedError(
+                "mono.fast_borders=True (zero-bordered decoder convs) is not ported: "
+                "the conv3x3 and fused_tail kernels take reflect borders only"
+            )
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = compute_dtype(cfg)
         if self.device.type == "cuda" and self.dtype == torch.float32:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
+        if (
+            cfg.pipeline == "mono"
+            and cfg.mono.fold_bn
+            and not isinstance(model.encoder, folded.FoldedEncoder)
+        ):
+            # Fold in fp32, before the cast to the compute dtype. The
+            # space-to-depth stem (cfg.mono.s2d_stem) is an exact relayout
+            # of the plain stem, which runs either way.
+            model.encoder = folded.FoldedEncoder.from_encoder(model.encoder)
         model = model.to(device=self.device, dtype=self.dtype).eval()
         # Channels-last cuDNN convs: their NHWC inputs and outputs are then
         # NCHW views with no copies. The mono decoder keeps its (Cout, Cin,

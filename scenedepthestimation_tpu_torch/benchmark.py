@@ -44,7 +44,7 @@ def reference_cpu_fps() -> Optional[float]:
 
 
 def _with_overrides(cfg: RunConfig, overrides: Optional[dict]) -> RunConfig:
-    """``{"mono.fast_borders": True, "dtype": "float32", ...}``: replace
+    """``{"mono.fold_bn": True, "dtype": "float32", ...}``: replace
     fields of the config and of its nested sections."""
     for key, val in (overrides or {}).items():
         section, _, field = key.partition(".")

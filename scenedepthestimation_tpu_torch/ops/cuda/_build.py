@@ -11,8 +11,9 @@ reuses the library.
 There is no fallback: a missing ``nvcc``, a failed build or a refused
 launch raises. The wrappers that launch kernels (``conv_block``,
 ``upsample_concat``, ``correlation``, ``correlation_gram``,
-``soft_argmin``, ``fused_tail``) add one to :data:`LAUNCHES` per launch, so a run can
-show that its main path went through them.
+``soft_argmin``, ``fused_tail``, ``winograd``) add one to
+:data:`LAUNCHES` per launch, so a run can show that its main path went
+through them.
 """
 
 from __future__ import annotations
@@ -65,6 +66,10 @@ _SIGNATURES = {
     "sde_soft_argmin": (_P, _P, _L, _I, _I, _F, _I, _F, _I, _P),
     # y1, w00, b00, w01, b01, y0, B, h, w, C1, C0, C0o, dtype, device, stream
     "sde_fused_tail": (_P,) * 6 + (_I,) * 8 + (_P,),
+    # x00..x11, sxb, sxh, sxw, r00..r11, srb, srh, srw, u, bias, y00..y11,
+    # syb, syh, syw, B, Hp, Wp, C, Co, relu, dtype, device, stream
+    "sde_winograd": (_P,) * 4 + (_L,) * 3 + (_P,) * 4 + (_L,) * 3 + (_P,) * 6
+    + (_L,) * 3 + (_I,) * 8 + (_P,),
 }
 
 

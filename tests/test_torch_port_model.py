@@ -248,3 +248,100 @@ def test_decoder_fused_tail_matches_jax_collapsed_v2():
     assert got.shape == want.shape == (2, 64, 128, 1)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
     assert torch.equal(got, unfused)
+
+
+def _folded_setup(num_layers, seed=0, hw=(64, 96)):
+    """The port's encoder from torch's default init (seeded) with its
+    BatchNorm terms randomized as tests/test_folded.py randomizes them
+    (scale U(0.5, 1.5), shift N(0, 0.3), mean N(0, 0.5), var U(0.2, 2)), far
+    from the init's identity, so a fold that mixes them up cannot pass; the
+    same weights as Flax variables through the JAX package's importer, and a
+    (2, H, W, 3) input. As in test_resnet18_features_match_jax, torch's init
+    is smaller than Flax's LeCun init, which keeps the fp32 reassociation
+    error of two conv libraries under the absolute tolerance."""
+    torch.manual_seed(seed)
+    enc = ResNetEncoder(num_layers).eval()
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for m in enc.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                for t, draw in (
+                    (m.weight, lambda s: rng.uniform(0.5, 1.5, s)),
+                    (m.bias, lambda s: rng.normal(0.0, 0.3, s)),
+                    (m.running_mean, lambda s: rng.normal(0.0, 0.5, s)),
+                    (m.running_var, lambda s: rng.uniform(0.2, 2.0, s)),
+                ):
+                    t.copy_(torch.from_numpy(draw(t.shape).astype(np.float32)))
+    variables = torch_import.convert_state_dict(enc.state_dict())
+    x = np.random.default_rng(seed + 11).normal(size=(2, *hw, 3)).astype(np.float32)
+    return variables, enc, x
+
+
+@pytest.mark.parametrize("num_layers", [18, 50])
+def test_fold_encoder_bn_matches_jax(num_layers):
+    """fold_encoder_bn of the port's encoder vs the JAX package's on the same
+    carried-across weights, every conv (kernels HWIO -> OIHW): atol 1e-6."""
+    from scenedepthestimation_tpu.models.folded import fold_encoder_bn as jax_fold
+    from scenedepthestimation_tpu_torch.models import folded
+
+    variables, enc, _ = _folded_setup(num_layers)
+    want = jax_fold(variables["params"], variables["batch_stats"], num_layers)
+    got = folded.fold_encoder_bn(enc)
+    assert sorted(got) == sorted(want)
+    for name, node in want.items():
+        leaves = {name: node} if "kernel" in node else {f"{name}/{k}": v for k, v in node.items()}
+        part = got[name]
+        for key, t in leaves.items():
+            p = part if "kernel" in node else part[key.split("/")[1]]
+            assert p["weight"].dtype == torch.float32, key
+            np.testing.assert_allclose(
+                p["weight"].permute(2, 3, 1, 0).numpy(), np.asarray(t["kernel"]), atol=1e-6, rtol=0, err_msg=key
+            )
+            np.testing.assert_allclose(p["bias"].numpy(), np.asarray(t["bias"]), atol=1e-6, rtol=0, err_msg=key)
+
+
+@pytest.mark.parametrize("num_layers", [18, 50])
+def test_folded_encoder_matches_jax_folded_apply(num_layers):
+    """FoldedEncoder vs folded_encoder_apply (fp32, XLA convs) at 64x96:
+    every level atol 2e-5, rtol 1e-5 (tests/test_folded.py's tolerance)."""
+    from scenedepthestimation_tpu.models.folded import fold_encoder_bn as jax_fold
+    from scenedepthestimation_tpu.models.folded import folded_encoder_apply
+    from scenedepthestimation_tpu_torch.models import folded
+
+    variables, enc, x = _folded_setup(num_layers, seed=1)
+    want = folded_encoder_apply(
+        jax_fold(variables["params"], variables["batch_stats"], num_layers), jnp.asarray(x), num_layers
+    )
+    fenc = folded.FoldedEncoder.from_encoder(enc).eval()
+    with torch.no_grad():
+        got = fenc(torch.from_numpy(x))
+    assert len(got) == len(want) == 5
+    for lvl, (g, w) in enumerate(zip(got, want)):
+        assert g.is_contiguous() and tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5, rtol=1e-5, err_msg=f"level {lvl}")
+
+
+def test_folded_encoder_on_winograd_equals_cudnn_path(monkeypatch):
+    """The folded ResNet-18 with its 13 stride-1 BasicBlock convs swapped onto
+    ops.winograd.winograd_conv3x3 (its plain version on the CPU), the swap
+    chip_smoke.py makes on the card, vs the F.conv2d path: fp32 atol 1e-5."""
+    from scenedepthestimation_tpu_torch.models import folded
+    from scenedepthestimation_tpu_torch.ops import winograd
+
+    variables, enc, x = _folded_setup(18, seed=2, hw=(64, 128))  # even at /32
+    fenc = folded.FoldedEncoder.from_encoder(enc).eval()
+    with torch.no_grad():
+        want = fenc(torch.from_numpy(x))
+    calls = []
+
+    def on_winograd(x, weight, bias, residual=None):
+        calls.append(residual is not None)
+        nhwc = (lambda t: None if t is None else t.permute(0, 2, 3, 1))
+        return winograd.winograd_conv3x3(nhwc(x), weight, bias, nhwc(residual)).permute(0, 3, 1, 2)
+
+    monkeypatch.setattr(folded, "conv3x3_bias_relu", on_winograd)
+    with torch.no_grad():
+        got = fenc(torch.from_numpy(x))
+    assert len(calls) == 13 and sum(calls) == 8  # every block's conv2 adds its shortcut
+    for lvl, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, rtol=0, err_msg=f"level {lvl}")

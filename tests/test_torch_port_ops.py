@@ -293,3 +293,142 @@ def test_fused_tail_rejects_bad_input_and_flags():
     with pytest.raises(ValueError, match="flag must be"):
         fused_tail.set_use_fused_tail("v3")
     assert not fused_tail.enabled()  # off by default, as in the JAX package
+
+
+def _wino_data(b, h, w, c, co, seed):
+    """x, the kernel in the JAX layout (3, 3, C, Co), bias and residual, as
+    tests/test_winograd.py makes them."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, h, w, c)).astype(np.float32)
+    g = (rng.normal(size=(3, 3, c, co)) * 0.2).astype(np.float32)
+    bias = rng.normal(size=(co,)).astype(np.float32)
+    res = rng.normal(size=(b, h, w, co)).astype(np.float32)
+    return x, g, bias, res
+
+
+def _oihw(g: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(g).permute(3, 2, 0, 1).contiguous()
+
+
+def test_winograd_transform_weights_matches_jax():
+    """U of the port's (Co, C, 3, 3) kernel vs the JAX function's of the
+    same kernel as HWIO; atol 1e-7 (sums of three fp32 terms)."""
+    from scenedepthestimation_tpu.ops.pallas import winograd as jax_wino
+    from scenedepthestimation_tpu_torch.ops import winograd
+
+    _, g, _, _ = _wino_data(1, 2, 2, 5, 7, 0)
+    got = winograd.transform_weights(_oihw(g))
+    want = np.asarray(jax_wino.transform_weights(jnp.asarray(g)))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (16, 5, 7)
+    np.testing.assert_allclose(_np(got), want, atol=1e-7, rtol=0)
+
+
+# (B, H, W, C, Co, th): tests/test_winograd.py's shape; its multi-block
+# case (th=4: four row blocks, both halo directions and the first/last
+# masking in the TPU kernel); C and Co off every tile width.
+_WINO_SHAPES = {"base": (1, 8, 16, 8, 8, None), "th4": (2, 32, 12, 4, 8, 4), "ragged": (2, 6, 10, 5, 7, None)}
+
+
+@pytest.mark.parametrize(
+    "shape,relu,use_res",
+    [("base", relu, res) for relu in (False, True) for res in (False, True)]
+    + [("th4", True, False), ("ragged", True, True)],
+)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_winograd_plain_matches_pallas_kernel(shape, relu, use_res, dtype):
+    """winograd_conv3x3_phases_plain vs the TPU kernel in interpret mode on
+    the same phases. fp32: atol 1e-5, the JAX package's own tolerance
+    (measured 9.5e-7). bf16: one bf16 spacing of each element (measured 0:
+    both take the input transform in bf16 with the same two roundings and
+    the products in fp32; two fp32 sums taken in other orders may round to
+    neighbouring bf16 values)."""
+    from scenedepthestimation_tpu.ops.pallas import winograd as jax_wino
+    from scenedepthestimation_tpu_torch.ops import winograd
+
+    b, h, w, c, co, th = _WINO_SHAPES[shape]
+    x, g, bias, res = _wino_data(b, h, w, c, co, seed=len(shape))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jax_wino.winograd_conv3x3_phases(
+        jax_wino.space_to_phases(jnp.asarray(x).astype(jdt)),
+        jax_wino.transform_weights(jnp.asarray(g)),
+        jnp.asarray(bias),
+        residual_phases=jax_wino.space_to_phases(jnp.asarray(res).astype(jdt)) if use_res else None,
+        relu=relu, interpret=True, th=th,
+    )
+    _build.LAUNCHES.clear()
+    got = winograd.winograd_conv3x3_phases(
+        winograd.space_to_phases(torch.from_numpy(x).to(tdt)),
+        winograd.transform_weights(_oihw(g)),
+        torch.from_numpy(bias),
+        residual_phases=winograd.space_to_phases(torch.from_numpy(res).to(tdt)) if use_res else None,
+        relu=relu,
+    )
+    assert not _build.LAUNCHES  # CPU tensors take the plain version
+    assert len(got) == 4
+    for gp, wp in zip(got, want):
+        assert gp.dtype == tdt and tuple(gp.shape) == (b, h // 2, w // 2, co)
+        wp = np.asarray(wp.astype(jnp.float32))
+        if dtype == "float32":
+            np.testing.assert_allclose(_np(gp), wp, atol=1e-5, rtol=0)
+        else:
+            spacing = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(wp), 2.0 ** -120))) - 7)
+            assert (np.abs(_np(gp.float()) - wp) <= spacing).all()
+
+
+@pytest.mark.parametrize("use_res", [False, True])
+def test_winograd_conv3x3_matches_direct_conv(use_res):
+    """The NHWC wrapper (phases as views, the output written in place) vs
+    the port's and the JAX package's direct-conv oracles, zero padding, fp32;
+    atol 1e-5 (tests/test_winograd.py's)."""
+    from scenedepthestimation_tpu.ops.pallas import winograd as jax_wino
+    from scenedepthestimation_tpu_torch.ops import winograd
+
+    x, g, bias, res = _wino_data(2, 6, 10, 5, 7, seed=3)
+    r = res if use_res else None
+    got = winograd.winograd_conv3x3(
+        torch.from_numpy(x), _oihw(g), torch.from_numpy(bias),
+        residual=None if r is None else torch.from_numpy(r),
+    )
+    ref = winograd.conv3x3_reference(
+        torch.from_numpy(x), _oihw(g), torch.from_numpy(bias),
+        residual=None if r is None else torch.from_numpy(r),
+    )
+    want = np.asarray(jax_wino.conv3x3_reference(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(bias),
+        residual=None if r is None else jnp.asarray(r),
+    ))
+    assert got.is_contiguous() and tuple(got.shape) == (2, 6, 10, 7)
+    np.testing.assert_allclose(_np(got), want, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(_np(ref), want, atol=1e-5, rtol=0)
+
+
+def test_winograd_phases_round_trip_and_odd_sizes_raise():
+    from scenedepthestimation_tpu_torch.ops import winograd
+
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(2, 6, 10, 3)).astype(np.float32))
+    phases = winograd.space_to_phases(x)
+    assert [tuple(p.shape) for p in phases] == [(2, 3, 5, 3)] * 4
+    assert torch.equal(phases[2], x[:, 1::2, 0::2])
+    assert torch.equal(winograd.phases_to_space(phases), x)
+    for shape in ((1, 5, 6, 3), (1, 6, 7, 3)):
+        with pytest.raises(ValueError, match="even H and W"):
+            winograd.space_to_phases(torch.zeros(shape))
+        with pytest.raises(ValueError, match="even H and W"):
+            winograd.winograd_conv3x3(torch.zeros(shape), torch.zeros(4, 3, 3, 3))
+
+
+def test_winograd_rejects_bad_input():
+    from scenedepthestimation_tpu_torch.ops import winograd
+
+    phases = winograd.space_to_phases(torch.zeros(1, 4, 4, 3))
+    u = torch.zeros(16, 3, 5)
+    with pytest.raises(ValueError, match="u must be"):
+        winograd.winograd_conv3x3_phases(phases, torch.zeros(16, 4, 5), torch.zeros(5))
+    with pytest.raises(ValueError, match="bias must be"):
+        winograd.winograd_conv3x3_phases(phases, u, torch.zeros(4))
+    with pytest.raises(ValueError, match="residual_phases must be"):
+        winograd.winograd_conv3x3_phases(phases, u, torch.zeros(5), residual_phases=phases)
+    with pytest.raises(ValueError, match="expected 4 phases"):
+        winograd.winograd_conv3x3_phases(phases[:3], u, torch.zeros(5))
+    with pytest.raises(ValueError, match="weight must be"):
+        winograd.transform_weights(torch.zeros(5, 3, 1, 1))
