@@ -11,9 +11,14 @@ Phases, one line each (more for the per-shape kernel checks):
   1. device: name and power limit from nvidia-smi, the TF32 flags;
   2. build: nvcc time (one nvcc per source, in parallel) and the library;
   3. kernels: conv3x3 at the 11 decoder shapes of mono_kitti_192x640_fp32
-     in fp32 and bf16, upsample_concat at its 4 shapes, each against its
-     plain version on the card, with both times (CUDA events, median of
-     30 runs, L2 warm as in the decoder);
+     in fp32 and bf16 (the bf16 calls with their weight slab made
+     beforehand) and at off-path shapes in both (the zero border, 1-pixel H
+     and W under every border, Cin 3, 20 and 96, Cout 1, 12, 32 and 256,
+     odd W, inputs smaller than one tile, which split their channels),
+     upsample_concat at its 4 shapes, each against its plain version on
+     the card, with both times (CUDA events, median of 30 runs, L2 warm as
+     in the decoder); ptxas's lines for the conv3x3 kernels, and the
+     tensor-core (HGMMA) instructions in its bf16 kernel's SASS;
   4. end to end: load_weights(None, seed 0) + predict_mono on 375x1242
      frames, plain and with post_process: launch counts, shapes, finite
      values, agreement with the CPU run of the same weights, and ms/frame
@@ -59,7 +64,9 @@ Phases, one line each (more for the per-shape kernel checks):
      each kernel call of one b128 forward (9 conv3x3, 4 upsample_concat,
      the fused tail; and the unfused level 0's 2 conv3x3) on the inputs
      that forward gave it against its plain version, with the kernel's,
-     the plain version's and cuDNN's times and the bound,
+     the plain version's and cuDNN's times, the bound and the share of it
+     (conv3x3 with the slab its module made; the slab arrangement timed
+     apart),
      agreement with a CPU bf16 run at b2, and the depth abs-rel of bf16
      against the card's fp32 run (seeded weights at b128, the reference's
      seed-0 weights at b8);
@@ -79,7 +86,13 @@ Phases, one line each (more for the per-shape kernel checks):
      only) against the fp32 folded encoder, and each one's depth abs-rel
      against the card's fp32 folded run at b128 (<= 2.5e-3); a profile of a
      folded b128 forward; parity_abs_rel with fold_bn in fp32 (<= 1e-4) and
-     bf16 (<= 1e-3).
+     bf16 (<= 1e-3);
+ 17. repairs: mono_kitti_192x640_fp32 with mono.fast_borders (every
+     decoder conv zero-bordered, fused tail off) on 375x1242 frames
+     against a CPU run of the same weights; run_bench with fast_borders and
+     the fused tail on, beside the reflect run, in turns (fast, reflect,
+     fast); load_weights of one .pth file against the directory form of
+     the same weights (the reference's seed-0 weights), equal on the card.
 Then one JSON line of per-kernel results (with each kernel's bound on
 this card and, where one PyTorch call computes the same function, that
 call's time) and, last, the ok line.
@@ -292,6 +305,17 @@ EXTRA_CONV = [
     ((1, 5, 6, 200, 96), "elu", "reflect", None),
     ((3, 17, 31, 40, 17), "elu", "edge", None),
     ((1, 2, 2, 64, 1), "sigmoid", "reflect", torch.float32),
+    # The zero border (Cin 96 -> Cout 256 and Cin 20 -> Cout 12 at odd W,
+    # the Cout = 1 head kernel), 1-pixel H and W under every border, and
+    # inputs smaller than one tile, which split their input channels.
+    ((2, 11, 37, 96, 256), "elu", "zero", None),
+    ((1, 9, 33, 20, 12), "none", "zero", None),
+    ((2, 13, 19, 16, 1), "sigmoid", "zero", torch.float32),
+    *[((2, h, w, 20, 32), "elu", border, None)
+      for border in ("reflect", "edge", "zero") for h, w in ((1, 9), (9, 1), (1, 1))],
+    ((1, 1, 7, 16, 1), "sigmoid", "reflect", torch.float32),
+    ((1, 3, 5, 256, 32), "elu", "reflect", None),
+    ((2, 4, 4, 96, 256), "relu", "zero", None),
 ]
 EXTRA_UPCAT = [(2, 3, 5, 3, 5), (1, 4, 6, 8, 4), (2, 5, 3, 16, 24)]
 
@@ -327,10 +351,52 @@ STEREO_UPCAT_SHAPES = [
 ]
 
 
+def ptxas_lines(text: str, kernel: str) -> list:
+    """ptxas's registers and spill stores for every instantiation of the
+    entry functions whose name holds ``kernel``: [(template arguments as
+    mangled, registers, spill bytes)]."""
+    out = []
+    for m in re.finditer(rf"Compiling entry function '(\S*{kernel}\S*)'", text):
+        report = text[m.end():m.end() + 600]
+        regs = re.search(r"Used (\d+) registers", report)
+        spills = re.search(r"(\d+) bytes spill stores", report)
+        check(regs is not None and spills is not None, f"no ptxas report for {m.group(1)}")
+        args = m.group(1).split(kernel, 1)[1]
+        out.append((args, int(regs.group(1)), int(spills.group(1))))
+    check(bool(out), f"no ptxas report for {kernel} in nvcc.log")
+    return out
+
+
+def sass_counts(_build, kernel: str, op: str) -> dict:
+    """How many ``op`` instructions the SASS of each entry function whose
+    name holds ``kernel`` has, as cuobjdump (beside nvcc) disassembles the
+    built library."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", _build.library_path()], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        if kernel in name:
+            counts[name] = block.count(op)
+    return counts
+
+
 def phase_kernels(conv_block, upcat) -> dict:
     rng = np.random.default_rng(0)
     lib = conv_block._build.lib()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    with open(os.path.join(os.path.dirname(conv_block._build.library_path()), "nvcc.log")) as f:
+        text = f.read()
+    for kernel in ("conv3x3_tc_kernel", "conv3x3_head_kernel", "conv3x3_kernel"):
+        print(f"[3 conv3x3 ptxas] {kernel}: " + "; ".join(
+            f"{a} {r} registers, {sp} bytes of spill stores" for a, r, sp in ptxas_lines(text, kernel)))
+    # The bf16 path's products are tensor-core instructions in the SASS.
+    hgmma = sass_counts(conv_block._build, "conv3x3_tc_kernel", "HGMMA")
+    check(len(hgmma) == 16 and min(hgmma.values()) > 0,
+          f"conv3x3_tc_kernel instantiations without HGMMA in their SASS: {hgmma}")
+    print(f"[3 conv3x3 sass] conv3x3_tc_kernel: {len(hgmma)} instantiations, "
+          f"{min(hgmma.values())}-{max(hgmma.values())} HGMMA instructions each")
     res = {"conv3x3": {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0},
            "upsample_concat": {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}}
     for dtype in (torch.float32, torch.bfloat16):
@@ -338,9 +404,11 @@ def phase_kernels(conv_block, upcat) -> dict:
         for name, h, w, cin, cout, act, out_dtype in CONV_SHAPES:
             args, err, tol, ok = _conv_case(
                 conv_block, rng, (1, h, w, cin, cout), act, "reflect", dtype, out_dtype)
-            ms = time_ms(lambda: conv_block.conv3x3(*args))
+            x, wt = args[:2]
+            slab = conv_block.arrange_slab(wt) if conv_block.uses_slab(x, cout) else None
+            ms = time_ms(lambda: conv_block.conv3x3(*args, slab=slab))
             plain_ms = time_ms(lambda: conv_block.conv3x3_plain(*args))
-            splits = lib.sde_conv3x3_splits(1, h, w, cin, cout, sms)
+            splits = lib.sde_conv3x3_splits(1, h, w, cin, cout, conv_block._DTYPES[dtype], sms)
             print(f"[3 conv3x3 {dt}] {name} {h}x{w} {cin}->{cout} {act} "
                   f"(splits {splits}): max|err| {err:.3g} ({tol}) kernel "
                   f"{ms:.4f} ms plain {plain_ms:.4f} ms")
@@ -357,7 +425,7 @@ def phase_kernels(conv_block, upcat) -> dict:
         for shape, act, border, out_dtype in EXTRA_CONV:
             _, err, tol, ok = _conv_case(
                 conv_block, rng, shape, act, border, dtype, out_dtype)
-            splits = lib.sde_conv3x3_splits(*shape, sms)
+            splits = lib.sde_conv3x3_splits(*shape, conv_block._DTYPES[dtype], sms)
             print(f"[3 conv3x3 {dt} extra] {shape} {act} {border} (splits "
                   f"{splits}): max|err| {err:.3g} ({tol})")
             check(ok, f"conv3x3 {dt} {shape} disagrees with its plain version")
@@ -931,6 +999,9 @@ def phase_serve(sdt, serve) -> None:
 
 BENCH_CONFIG = "mono_kitti_384x1152_bench"
 BENCH_B = 128
+# conv3x3 weight slabs a bf16 mono predictor on the card arranges once: the
+# decoder's ten Conv3x3 with Cout > 1 (the heads have Cout = 1).
+BENCH_SLABS = 10
 BENCH_ITERS = 10
 BENCH_WARMUP = 2
 # (name, (B, h, w, C1, C0, C0o), dtype) of the fused tail: the bench preset's
@@ -1088,20 +1159,26 @@ def _bench_conv(conv_block, tag, args, kwargs, r=None) -> None:
     x, wt, bias = args
     b, h, w, cin = x.shape
     cout = wt.shape[0]
+    if conv_block.uses_slab(x, cout) and kwargs.get("slab") is None:
+        kwargs = dict(kwargs, slab=conv_block.arrange_slab(wt))
     ms = time_ms(lambda: conv_block.conv3x3(*args, **kwargs), runs=BENCH_KERNEL_RUNS)
     plain_ms = time_ms(lambda: conv_block.conv3x3_plain(*args, **kwargs), runs=BENCH_KERNEL_RUNS)
     lib_ms = _conv_library_ms(x, wt, bias, runs=BENCH_KERNEL_RUNS)
+    slab_ms = (time_ms(lambda: conv_block.arrange_slab(wt), runs=BENCH_KERNEL_RUNS)
+               if kwargs.get("slab") is not None else 0.0)
     t, by = bound_ms(nbytes(x, wt, bias) + out_bytes, 2 * 9 * b * h * w * cin * cout, "bf16")
     print(f"[13 bench conv3x3 bf16] {tag} {tuple(x.shape)} -> {cout} "
           f"{kwargs.get('activation', 'elu')}: max|err| {err:.3g} (1e-2 x max|ref| = "
           f"{1e-2 * ref_max:.3g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms cuDNN "
-          f"{lib_ms:.4f} ms bound {t:.4f} ms ({by})")
+          f"{lib_ms:.4f} ms bound {t:.4f} ms ({by}), {100 * t / ms:.1f}% of the bound; "
+          f"slab arrangement {slab_ms:.4f} ms (once per module)")
     check(err <= 1e-2 * ref_max, f"conv3x3 bench {tag} disagrees with its plain version")
     if r is not None:
         r["err"] = max(r["err"], err)
         r["ms"] += ms
         r["plain_ms"] += plain_ms
         r["library_ms"] += lib_ms
+        r["slab_ms"] = r.get("slab_ms", 0.0) + slab_ms
         add_bound(r, nbytes(x, wt, bias) + out_bytes, 2 * 9 * b * h * w * cin * cout, "bf16")
 
 
@@ -1121,6 +1198,10 @@ def _bench_kernels(conv_block, upcat, fts, forward) -> dict:
     conv = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
     for name, (args, kwargs) in zip(BENCH_CONV_NAMES, calls["conv3x3"]):
         _bench_conv(conv_block, name, args, kwargs, conv)
+    print(f"[13 bench conv3x3 bf16] the 9 calls: kernel {conv['ms']:.4f} ms, cuDNN "
+          f"{conv['library_ms']:.4f} ms, bound {conv['bound_ms']:.4f} ms "
+          f"({100 * conv['bound_ms'] / conv['ms']:.1f}% of the bound); slab arrangements "
+          f"{conv['slab_ms']:.4f} ms, made once per predictor")
     cat = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
     for name, (args, _) in zip(BENCH_UPCAT_NAMES, calls["upsample_concat"]):
         err = (upcat.upsample_concat(*args).float()
@@ -1168,8 +1249,9 @@ def phase_bench(sdt, benchmark, fts, _build, conv_block, upcat) -> dict:
         launches = dict(_build.LAUNCHES)
         want = ({"fused_tail": 1, "conv3x3": 9, "upsample_concat": 4} if flag
                 else {"conv3x3": 11, "upsample_concat": 4})
-        check(launches == {k: v * forwards for k, v in want.items()},
-              f"fused tail {flag}: {launches} launches over {forwards} forwards, want {want} each")
+        check(launches == {**{k: v * forwards for k, v in want.items()}, "conv3x3_slab": BENCH_SLABS},
+              f"fused tail {flag}: {launches} launches over {forwards} forwards, want {want} each "
+              f"and {BENCH_SLABS} slabs once")
         check(np.isfinite(r["checksum"]) and r["checksum"] > 0, f"bench checksum {r['checksum']}")
         per_forward["on" if flag else "off"] = want
         runs.append((flag, r, torch.cuda.max_memory_allocated() / 2**30))
@@ -1474,8 +1556,9 @@ def phase_folded(sdt, benchmark, wino_ops, folded_mod, _build) -> dict:
                                 overrides={"mono.fold_bn": fold})
         launches = dict(_build.LAUNCHES)
         want = {"fused_tail": 1, "conv3x3": 9, "upsample_concat": 4}
-        check(launches == {k: v * forwards for k, v in want.items()},
-              f"fold_bn {fold}: {launches} launches over {forwards} forwards, want {want} each")
+        check(launches == {**{k: v * forwards for k, v in want.items()}, "conv3x3_slab": BENCH_SLABS},
+              f"fold_bn {fold}: {launches} launches over {forwards} forwards, want {want} each "
+              f"and {BENCH_SLABS} slabs once")
         check(np.isfinite(r["checksum"]) and r["checksum"] > 0, f"bench checksum {r['checksum']}")
         fps[fold] = r["value"]
 
@@ -1584,6 +1667,80 @@ def phase_folded(sdt, benchmark, wino_ops, folded_mod, _build) -> dict:
     return {"launches": out["winograd"]["launches"]["winograd"]}
 
 
+def phase_repairs(sdt, benchmark, fts, _build) -> None:
+    """mono.fast_borders on config 1 (card vs CPU) and on the bench (beside
+    the reflect run), and single-file weights on the card."""
+    import dataclasses
+
+    # Config 1 with fast borders, fused tail off: every decoder conv and the
+    # head zero-bordered; the card against the CPU on the same weights, at
+    # phase 4's tolerances.
+    fts.set_use_fused_tail(None)
+    cfg = sdt.configs.get(CONFIG)
+    cfg_fast = dataclasses.replace(cfg, mono=dataclasses.replace(cfg.mono, fast_borders=True))
+    frame = np.random.default_rng(3).integers(0, 256, SRC_HW + (3,), dtype=np.uint8)
+    p = sdt.load_weights(None, cfg_fast, seed=0, device="cuda")
+    check(p.model.decoder.border_mode == "fast", f"border mode {p.model.decoder.border_mode}")
+    sdt.predict_mono(p, frame)  # warm-up
+    _build.LAUNCHES.clear()
+    out = sdt.predict_mono(p, frame)
+    c1_launches = dict(_build.LAUNCHES)
+    check(c1_launches == {"conv3x3": 11, "upsample_concat": 4}, f"fast borders launches {c1_launches}")
+    ref = sdt.predict_mono(sdt.load_weights(None, cfg_fast, seed=0, device="cpu"), frame)
+    exact = sdt.predict_mono(sdt.load_weights(None, cfg, seed=0, device="cuda"), frame)
+    lo, hi = 1.0 / cfg.mono.max_depth, 1.0 / cfg.mono.min_depth
+    for k in ("disp", "depth"):
+        check(out[k].shape == SRC_HW and bool(np.isfinite(out[k]).all()), f"fast {k} {out[k].shape}")
+    s_err = float(np.abs(out["disp"] - ref["disp"]).max()) / (hi - lo)
+    z_rel = float((np.abs(out["depth"] - ref["depth"]) / ref["depth"]).max())
+    moved = float((np.abs(out["depth"] - exact["depth"]) / exact["depth"]).max())
+    check(s_err <= 1e-5, f"fast borders sigmoid disp vs CPU {s_err:.3g} > 1e-5")
+    check(z_rel <= 1e-4, f"fast borders depth vs CPU max rel {z_rel:.3g} > 1e-4")
+    check(moved > 1e-3, f"fast borders moved the depth by only {moved:.3g} from reflect")
+
+    # The bench with fast borders and the fused tail on, beside the reflect
+    # run, in turns.
+    fts.set_use_fused_tail(True)
+    forwards = BENCH_WARMUP + BENCH_ITERS
+    fps = []
+    for fast in (True, False, True):
+        _build.LAUNCHES.clear()
+        r = benchmark.run_bench(BENCH_CONFIG, iters=BENCH_ITERS, warmup=BENCH_WARMUP,
+                                overrides={"mono.fast_borders": fast})
+        launches = dict(_build.LAUNCHES)
+        want = {"fused_tail": 1, "conv3x3": 9, "upsample_concat": 4}
+        check(launches == {**{k: v * forwards for k, v in want.items()}, "conv3x3_slab": BENCH_SLABS},
+              f"fast_borders {fast}: {launches} launches over {forwards} forwards")
+        check(np.isfinite(r["checksum"]) and r["checksum"] > 0, f"bench checksum {r['checksum']}")
+        fps.append(("fast" if fast else "reflect", r["value"]))
+
+    # One .pth file and the family's directory form of the same weights (the
+    # reference's seed-0 state_dict) give the same depth on the card.
+    torch.manual_seed(0)
+    state = {k: v for k, v in benchmark._torch_ref().MonoDepthNet().state_dict().items()
+             if not k.endswith("num_batches_tracked")}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(state, os.path.join(tmp, "model.pth"))
+        os.makedirs(os.path.join(tmp, "family"))
+        for name, prefix in (("encoder.pth", "encoder."), ("depth.pth", "decoder.")):
+            torch.save({k: v for k, v in state.items() if k.startswith(prefix)},
+                       os.path.join(tmp, "family", name))
+        by_file = sdt.predict_mono(sdt.load_weights(os.path.join(tmp, "model.pth"), CONFIG), frame)
+        by_dir = sdt.predict_mono(sdt.load_weights(os.path.join(tmp, "family"), CONFIG), frame)
+    check(all(np.array_equal(by_file[k], by_dir[k]) for k in ("disp", "depth")),
+          "single-file weights and the directory form give different depth")
+    print(f"[17 repairs] {CONFIG} b1 {SRC_HW[0]}x{SRC_HW[1]} with mono.fast_borders (fused tail "
+          f"off, every decoder conv and the head zero-bordered): launches {c1_launches}; "
+          f"vs CPU: sigmoid disp max|err| {s_err:.3g} (atol 1e-5), depth max rel {z_rel:.3g} "
+          f"(rtol 1e-4); depth moved from the reflect run by up to {moved:.3g} (relative)")
+    print(f"[17 repairs] {BENCH_CONFIG} b{BENCH_B} bf16, run_bench ({BENCH_WARMUP} warmup + "
+          f"{BENCH_ITERS} timed forwards, fused tail on) in turns: frames/s "
+          + ", ".join(f"{k} {v}" for k, v in fps))
+    print(f"[17 repairs] load_weights of one .pth file (the reference's seed-0 weights) and of "
+          f"the encoder.pth + depth.pth directory: the same depth on the card (max "
+          f"{float(by_file['depth'].max()):.4g} m)")
+
+
 def main() -> int:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     import scenedepthestimation_tpu_torch as sdt
@@ -1616,6 +1773,7 @@ def main() -> int:
     phase_parity(benchmark, fts, bench)
     wino_res = phase_winograd_kernels(sdt, wino_ops, wino, folded_mod, _build)
     folded_res = phase_folded(sdt, benchmark, wino_ops, folded_mod, _build)
+    phase_repairs(sdt, benchmark, fts, _build)
 
     # Each entry covers the main paths that run the kernel: mono b1 (fp32),
     # stereo b4 (fp32), config-5 stereo b16 (bf16) and the mono bench b128

@@ -29,6 +29,7 @@ import torch
 from scenedepthestimation_tpu_torch import configs
 from scenedepthestimation_tpu_torch.configs import RunConfig
 from scenedepthestimation_tpu_torch.models import folded, monodepth, stereo
+from scenedepthestimation_tpu_torch.models.unet_decoder import Conv3x3
 from scenedepthestimation_tpu_torch.ops.disp_to_depth import depth_from_disparity, disp_to_depth
 from scenedepthestimation_tpu_torch.ops.preprocess import preprocess, resize_bilinear
 from scenedepthestimation_tpu_torch.utils import weights as weights_io
@@ -52,13 +53,32 @@ def _blend_flipped(disp: torch.Tensor, disp_flip: torch.Tensor) -> torch.Tensor:
     return r_mask * disp + l_mask * disp_flip + (1.0 - l_mask - r_mask) * mean
 
 
+def _takes_collapsed_decoder(mono: configs.MonoConfig) -> bool:
+    """Where the JAX mono program runs its collapsed decoder (``use_packed``
+    in ``scenedepthestimation_tpu/api.py``: the packed decoder, a nearest
+    upsample, H and W divisible by 4, scale 0 among the scales), the only
+    place its fast borders take effect."""
+    return (
+        mono.packed_decoder
+        and mono.upsample_mode == "nearest"
+        and mono.height % 4 == 0
+        and mono.width % 4 == 0
+        and 0 in mono.scales
+    )
+
+
 class Predictor:
     """The network of one pipeline on one device, and its end-to-end
     program (:meth:`mono_forward` or :meth:`stereo_forward`).
 
     A mono preset with ``fold_bn`` runs the BN-folded encoder
-    (``models/folded.py``), folded here in fp32 from the model's weights;
-    ``fast_borders`` raises ``NotImplementedError``.
+    (``models/folded.py``), folded here in fp32 from the model's weights.
+    With ``fast_borders`` the decoder runs the JAX program's fast-border
+    mode (zero-bordered convs, ``models/unet_decoder.py``) where the JAX
+    program takes its collapsed decoder (``_takes_collapsed_decoder``),
+    and the reflect decoder elsewhere, as the JAX program does. On CUDA in
+    bf16 the decoder's weight slabs for the conv3x3 kernel's tensor-core
+    path are made here, once.
 
     On CUDA with a float32 preset it turns TF32 off for cuDNN convolutions
     and matmuls (``torch.backends.cudnn.allow_tf32`` and
@@ -69,11 +89,6 @@ class Predictor:
     def __init__(self, cfg: RunConfig, model: torch.nn.Module, device: torch.device):
         if cfg.pipeline not in ("mono", "stereo"):
             raise ValueError(f"unknown pipeline {cfg.pipeline!r}")
-        if cfg.pipeline == "mono" and cfg.mono.fast_borders:
-            raise NotImplementedError(
-                "mono.fast_borders=True (zero-bordered decoder convs) is not ported: "
-                "the conv3x3 and fused_tail kernels take reflect borders only"
-            )
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = compute_dtype(cfg)
@@ -95,6 +110,12 @@ class Predictor:
         # 3, 3) weights contiguous, as the conv3x3 kernel reads them.
         if cfg.pipeline == "mono":
             model.encoder.to(memory_format=torch.channels_last)
+            fast = cfg.mono.fast_borders and _takes_collapsed_decoder(cfg.mono)
+            model.decoder.border_mode = "fast" if fast else "exact"
+            if self.device.type == "cuda" and self.dtype == torch.bfloat16:
+                for m in model.decoder.modules():
+                    if isinstance(m, Conv3x3) and m.weight.shape[0] > 1:
+                        m.slab()
         else:
             model.to(memory_format=torch.channels_last)
         self.model = model
@@ -159,10 +180,13 @@ def load_weights(
 ) -> Predictor:
     """Weights -> a :class:`Predictor` on ``device``.
 
-    ``path`` is a directory in the family's ``.pth`` layout (mono:
-    ``encoder.pth`` + ``depth.pth``; stereo: ``stereo.pth``); ``None`` makes
-    seeded random weights (a ``torch.Generator`` on the CPU, so every
-    device gets the same numbers). Stereo weights that hold a refinement
+    ``path`` takes the JAX package's forms (``utils/weights.load_path``): a
+    directory of ``.pth`` files in the family's layout (mono:
+    ``encoder.pth`` + ``depth.pth``; stereo: every file merged), or one
+    ``.pth`` / ``.pt`` state-dict file; an Orbax checkpoint directory
+    raises with the conversion command. ``None`` makes seeded random
+    weights (a ``torch.Generator`` on the CPU, so every device gets the
+    same numbers). Stereo weights that hold a refinement
     stage switch ``refine`` on, as the JAX package does: served without
     it, the network would return the coarse readout. ``device="cuda"``
     raises when CUDA is not available: nothing falls back to the CPU.
@@ -171,7 +195,7 @@ def load_weights(
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
-    state = None if path is None else weights_io.load_torch_dir(path)
+    state = None if path is None else weights_io.load_path(path)
     if cfg.pipeline == "mono":
         model, init = monodepth.MonoDepthNet(cfg.mono), monodepth.init_parameters
     else:

@@ -58,10 +58,6 @@ constexpr int kStageBytes = (kT + kWinRows) * kPitch * 2;
 constexpr int kBandBytes = kWarps * 16 * kGPitch * 4;
 constexpr int kSmemBytes = kStageBytes > kBandBytes ? kStageBytes : kBandBytes;
 
-__device__ __forceinline__ uint32_t lds32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // d += A (16x16, row-major) * B (16x8, column-major), bf16 in, fp32 sums.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
                                          uint32_t a1, uint32_t a2, uint32_t a3,

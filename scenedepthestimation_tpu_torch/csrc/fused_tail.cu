@@ -401,21 +401,6 @@ TcLayout tc_layout(int C1, int C0, int C0o) {
   return L;
 }
 
-__device__ __forceinline__ uint32_t lds32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += A (16x16, row-major) * B (16x8, column-major), bf16 in, fp32 sums.
-// Not volatile: it only reads and writes registers, so the compiler may
-// schedule it around the fragment loads.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // The A fragment of rows `lo` (row g) and `hi` (row g + 8), each already
 // at this thread's channel offset 2q: a0..a3 of mma.m16n8k16.
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint16_t* lo,
@@ -424,11 +409,6 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint16_t* lo,
   a[1] = lds32(hi);
   a[2] = lds32(lo + 8);
   a[3] = lds32(hi + 8);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // W (N, K, 3, 3) -> dst[tap][n][k] with row pitch `pitch`, zero for n >= N

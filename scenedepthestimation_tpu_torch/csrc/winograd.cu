@@ -135,36 +135,6 @@ constexpr int kTcSmem = 2 * (kVElems + kUElems);
 
 using bf2 = __nv_bfloat162;
 
-__device__ __forceinline__ uint32_t lds32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += A (16x16, row-major) * B (16x8, column-major), bf16 in, fp32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory, transposed: with lanes 0-15
-// pointing at rows k = 0..15 of a row-major (k, n) block at columns n0..n0+7
-// and lanes 16-31 at the same rows, columns n0+8..n0+15, r[0], r[1] are the
-// B fragment (b0, b1) of mma.m16n8k16 for columns n0.., r[2], r[3] for n0+8...
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const uint16_t* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  bf2 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // 4 channels of a tap as two bf16 pairs; zero outside the image or past C.
 __device__ __forceinline__ void load_tap(bf2 (&d)[2], const uint16_t* p, bool ok,
                                          int c, int C, bool vec) {

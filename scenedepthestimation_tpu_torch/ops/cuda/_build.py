@@ -51,11 +51,13 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, w, bias, out, workspace, splits, B, H, W, Cin, Cout, dtype,
-    # out_f32, act, reflect, device, stream
-    "sde_conv3x3": (_P,) * 5 + (_I,) * 11 + (_P,),
-    # B, H, W, Cin, Cout, num_sms
-    "sde_conv3x3_splits": (_I,) * 6,
+    # x, w, slab, bias, out, workspace, splits, B, H, W, Cin, Cout, dtype,
+    # out_f32, act, border, device, stream
+    "sde_conv3x3": (_P,) * 6 + (_I,) * 11 + (_P,),
+    # B, H, W, Cin, Cout, dtype, num_sms
+    "sde_conv3x3_splits": (_I,) * 7,
+    # w, slab, Cin, Cout, device, stream
+    "sde_conv3x3_arrange": (_P, _P, _I, _I, _I, _P),
     # x, skip, out, B, H, W, C1, C2, esize, device, stream
     "sde_upsample_concat": (_P, _P, _P) + (_I,) * 7 + (_P,),
     # fl, fr, out, rows, W, C, D, dtype, device, stream

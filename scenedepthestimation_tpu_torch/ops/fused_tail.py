@@ -16,7 +16,7 @@ from typing import Optional, Union
 
 from scenedepthestimation_tpu_torch.ops.cuda.fused_tail import fused_tail, fused_tail_plain
 
-__all__ = ["enabled", "fused_tail", "fused_tail_plain", "set_use_fused_tail"]
+__all__ = ["enabled", "fused_tail", "fused_tail_plain", "jax_tiles_rows", "set_use_fused_tail"]
 
 _USE_FUSED_TAIL: Optional[Union[bool, str]] = None
 
@@ -31,3 +31,15 @@ def set_use_fused_tail(flag: Optional[Union[bool, str]]) -> None:
 
 def enabled() -> bool:
     return bool(_USE_FUSED_TAIL)
+
+
+def jax_tiles_rows(h4: int) -> bool:
+    """Whether the JAX package's fused tail finds a row tiling of its packed
+    (H/4)-row input, and so runs: ``_pick_th`` of
+    ``scenedepthestimation_tpu/ops/pallas/fused_tail.py`` and
+    ``fused_tail_v2.py`` wants a tile of 16, 8, 4 or 2 rows that divides
+    h4 at least twice. Their VMEM budget, which binds only beyond 5,000 px
+    of width at the presets' channels, is not modelled. The port's kernel
+    tiles any h4; only fast borders, where level 0's border differs
+    between the routes, ask."""
+    return any(h4 % th == 0 and h4 // th >= 2 for th in (16, 8, 4, 2))

@@ -9,12 +9,15 @@ reference family's ``.pth`` files.
   decoder's ``upconv_i_j/conv`` and ``dispconv_s/conv`` keep their names,
   and so do the stereo tree's ``tower/*``, ``aggregation/*`` and
   ``refinement/*`` (which has no ``batch_stats``).
-* :func:`load_torch_dir`: the family's ``encoder.pth`` + ``depth.pth``
-  directory, as ``scenedepthestimation_tpu/utils/torch_export.py`` writes
-  it and ``utils/torch_import.py`` reads it. The encoder keys are already
+* :func:`load_path`: the JAX package's checkpoint forms
+  (``scenedepthestimation_tpu/utils/checkpoint.py::load_variables``): a
+  directory of ``.pth`` files (:func:`load_torch_dir`, the family's
+  ``encoder.pth`` + ``depth.pth`` layout, as
+  ``scenedepthestimation_tpu/utils/torch_export.py`` writes it and
+  ``utils/torch_import.py`` reads it), or one ``.pth`` / ``.pt`` state-dict
+  file (:func:`load_torch_file`). The encoder keys are already
   torchvision's; the decoder's ModuleList indices map to names through
-  ``_MD2_DECODER_ORDER``. A stereo net is one ``stereo.pth`` whose names
-  pass through.
+  ``_MD2_DECODER_ORDER``; the stereo net's names pass through.
 """
 
 from __future__ import annotations
@@ -95,8 +98,9 @@ def _strip_bookkeeping(state: Mapping[str, Any]) -> Dict[str, Any]:
     }
 
 
-def _canonical_key(key: str, nest: str) -> str:
-    """One family key -> the port's key under ``nest`` (encoder/decoder)."""
+def _canonical_key(key: str, nest: str = "") -> str:
+    """One family key -> the port's key, under ``nest`` (encoder/decoder)
+    when given."""
     parts = key.split(".")
     # DataParallel-saved checkpoints prefix every key with ``module.``.
     if parts and parts[0] == "module":
@@ -116,53 +120,70 @@ def _canonical_key(key: str, nest: str) -> str:
         parts = [name] + rest
     # The family's ResnetEncoder wraps torchvision as ``self.encoder``, so
     # its keys may carry the nesting already.
-    if parts[:1] != [nest]:
+    if nest and parts[:1] != [nest]:
         parts = [nest] + parts
     return ".".join(parts)
 
 
-def _load_pth(path: str) -> Mapping[str, Any]:
+def load_torch_file(path: str, nest: str = "") -> Dict[str, torch.Tensor]:
+    """One ``.pth`` state-dict file -> the port's keys in fp32 (under
+    ``nest`` when given), without the family's bookkeeping entries and
+    BatchNorm counters. With no nest it reads a file of the whole network,
+    mono or stereo, as ``torch_import.load_torch_file`` does."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(raw, dict) and "state_dict" in raw:
         raw = raw["state_dict"]
-    return _strip_bookkeeping(raw)
+    return {
+        _canonical_key(k, nest): v.float()
+        for k, v in _strip_bookkeeping(raw).items()
+        if not k.endswith("num_batches_tracked")
+    }
+
+
+# The pose pair of a joint depth + pose export: no part of inference.
+_POSE_STEMS = ("pose_encoder", "pose", "pose_decoder")
 
 
 def load_torch_dir(path: str) -> Dict[str, torch.Tensor]:
     """The family's per-network ``.pth`` directory -> the port's
-    ``state_dict``.
-
-    Mono: ``encoder.pth`` nests under ``encoder``, ``depth.pth`` (or
-    ``decoder.pth``) under ``decoder``; other files (the pose pair) are not
-    part of mono inference and are skipped. Stereo: a directory with
-    ``stereo.pth`` (one whole-model file in pass-through names, as the JAX
-    package's ``export_torch_dir`` writes it) loads that file alone.
+    ``state_dict``, merged as ``torch_import.load_torch_dir`` merges it:
+    ``encoder.pth`` nests under ``encoder``, ``depth.pth`` (or
+    ``decoder.pth``) under ``decoder``, any other file (a stereo net's,
+    whatever its name) at the root; the pose pair is skipped. A directory
+    without a file to load raises; a mono directory without its encoder or
+    decoder fails in :func:`load_state`.
     """
-    stereo = os.path.join(path, "stereo.pth")
-    if os.path.isfile(stereo):
-        state = {}
-        for k, v in _load_pth(stereo).items():
-            if not k.endswith("num_batches_tracked"):
-                state[k[len("module."):] if k.startswith("module.") else k] = v.float()
-        return state
     nest_by_stem = {"encoder": "encoder", "depth": "decoder", "decoder": "decoder"}
     state: Dict[str, torch.Tensor] = {}
-    found = set()
     for entry in sorted(os.listdir(path)):
         stem, ext = os.path.splitext(entry)
-        if ext not in (".pth", ".pt") or stem not in nest_by_stem:
+        if ext not in (".pth", ".pt") or stem in _POSE_STEMS:
             continue
-        nest = nest_by_stem[stem]
-        found.add(nest)
-        for k, v in _load_pth(os.path.join(path, entry)).items():
-            if k.endswith("num_batches_tracked"):
-                continue
-            state[_canonical_key(k, nest)] = v.float()
-    if found != {"encoder", "decoder"}:
+        state.update(load_torch_file(os.path.join(path, entry), nest_by_stem.get(stem, "")))
+    if not state:
         raise FileNotFoundError(
-            f"{path}: need encoder.pth and depth.pth, found {sorted(found)}"
+            f"{path}: no weights file (mono: encoder.pth and depth.pth; stereo: any .pth)"
         )
     return state
+
+
+def load_path(path: str) -> Dict[str, torch.Tensor]:
+    """Dispatch on the checkpoint's form, as the JAX package's
+    ``checkpoint.load_variables`` does: a directory holding ``.pth`` or
+    ``.pt`` files, or one such file. A directory without them is the JAX
+    package's Orbax checkpoint, which the port cannot read (Orbax is a JAX
+    library): it raises with the command that converts it."""
+    if os.path.isdir(path):
+        if any(e.endswith((".pth", ".pt")) for e in os.listdir(path)):
+            return load_torch_dir(path)
+        raise ValueError(
+            f"{path!r} holds no .pth file: an Orbax checkpoint of the JAX package "
+            f"loads in the port after `scenedepth export --weights {path} --torch OUT` "
+            "writes it as .pth files to OUT"
+        )
+    if path.endswith((".pth", ".pt")):
+        return load_torch_file(path)
+    raise ValueError(f"unrecognized checkpoint path {path!r}")
 
 
 def load_state(model: nn.Module, state: Mapping[str, torch.Tensor]) -> None:

@@ -345,14 +345,19 @@ def test_predict_batch_equals_mono_forward_per_batch(port_predictor):
 
 
 @pytest.mark.parametrize(
-    "config,section,dtype",
-    [("mono_kitti_384x1152_bench", "mono", "bfloat16"), ("stereo_256x512_b4", "stereo", "float32")],
-    ids=["mono_bench", "stereo"],
+    "config,section,dtype,extra",
+    [
+        ("mono_kitti_384x1152_bench", "mono", "bfloat16", {}),
+        ("stereo_256x512_b4", "stereo", "float32", {}),
+        ("mono_kitti_384x1152_bench", "mono", "bfloat16", {"mono.fast_borders": True}),
+    ],
+    ids=["mono_bench", "stereo", "mono_bench_fast_borders"],
 )
-def test_run_bench_on_cpu_returns_jax_keys(config, section, dtype):
+def test_run_bench_on_cpu_returns_jax_keys(config, section, dtype, extra):
     """run_bench at 64x128, b2, one iteration on the CPU: the keys of the
     JAX package's run_bench (scenedepthestimation_tpu/benchmark.py:194-205)
-    and a finite checksum; the mono bench with the fused tail on."""
+    and a finite checksum; the mono bench with the fused tail on, and once
+    with the mono.fast_borders override the JAX run_bench also takes."""
     from scenedepthestimation_tpu_torch import benchmark
     from scenedepthestimation_tpu_torch.ops import fused_tail
 
@@ -360,7 +365,7 @@ def test_run_bench_on_cpu_returns_jax_keys(config, section, dtype):
     try:
         r = benchmark.run_bench(
             config, batch_size=2, iters=1, warmup=1, device="cpu",
-            overrides={f"{section}.height": TAIL_HW[0], f"{section}.width": TAIL_HW[1]},
+            overrides={f"{section}.height": TAIL_HW[0], f"{section}.width": TAIL_HW[1], **extra},
         )
     finally:
         fused_tail.set_use_fused_tail(None)
@@ -474,24 +479,159 @@ def test_predict_mono_fold_bn_matches_jax_bf16(fold_runs):
     assert 0 < port_rel <= max(2 * jax_rel, 1e-3), (port_rel, jax_rel)
 
 
-def test_fast_borders_is_refused():
-    """mono.fast_borders=True makes the JAX program run its decoder convs
-    with zero borders; the port's decoder kernels take reflect borders only,
-    so load_weights and Predictor refuse it rather than return other
-    numbers under the same config."""
-    cfg = _small(configs)
-    cfg = dataclasses.replace(cfg, mono=dataclasses.replace(cfg.mono, fast_borders=True))
-    with pytest.raises(NotImplementedError, match="fast_borders"):
-        api.load_weights(None, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="fast_borders"):
-        api.Predictor(cfg, MonoDepthNet(cfg.mono), "cpu")
+def _fast_cfg(cfg_module, dtype, **mono):
+    """The bench preset at 64x128 with fast_borders on (and more mono fields)."""
+    cfg = cfg_module.get("mono_kitti_384x1152_bench")
+    mono = dataclasses.replace(
+        cfg.mono, **{"height": TAIL_HW[0], "width": TAIL_HW[1], "fast_borders": True, **mono}
+    )
+    return dataclasses.replace(cfg, dtype=dtype, mono=mono)
+
+
+FAST_CASES = {  # key: (dtype, fused tail flag, more mono fields)
+    "off_fp32": ("float32", None, {}),
+    "off_bf16": ("bfloat16", None, {}),
+    "v2_fp32": ("float32", "v2", {}),
+    "v2_bf16": ("bfloat16", "v2", {}),
+    # Without the packed decoder the JAX program does not take use_packed,
+    # so fast borders do nothing there: the reflect decoder runs.
+    "unpacked_fp32": ("float32", None, {"packed_decoder": False}),
+}
+
+
+@pytest.fixture(scope="module")
+def fast_runs(jax_predictor):
+    """predict_mono with mono.fast_borders on, JAX (build_mono_program: the
+    collapsed decoder with border_mode="fast", the v2 fused tail in
+    interpret mode) and the port, on the same seeded weights with random
+    BatchNorm statistics and the same b2 uint8 frames at the net size; and
+    the port with fast_borders off beside each."""
+    from scenedepthestimation_tpu.ops import collapsed
+    from scenedepthestimation_tpu_torch.ops import fused_tail
+
+    variables = jax_predictor[1]
+    jvars = jax.tree_util.tree_map(jnp.asarray, variables)
+    state = weights.from_jax_variables(variables)
+    frames = np.random.default_rng(8).integers(0, 256, (2, *TAIL_HW, 3), dtype=np.uint8)
+    out = {}
+    for key, (dtype, flag, mono) in FAST_CASES.items():
+        collapsed.set_use_fused_tail(flag)
+        try:
+            out["jax", key] = jax_api.predict_mono(
+                jax_api.Predictor(_fast_cfg(jax_configs, dtype, **mono), jvars), frames
+            )
+        finally:
+            collapsed.set_use_fused_tail(None)
+        fused_tail.set_use_fused_tail(flag)
+        try:
+            for fast in (True, False):
+                cfg = _fast_cfg(configs, dtype, fast_borders=fast, **mono)
+                model = MonoDepthNet(cfg.mono)
+                weights.load_state(model, state)
+                pred = api.Predictor(cfg, model, "cpu")
+                out["port" if fast else "exact", key] = api.predict_mono(pred, frames)
+                if fast:
+                    out["border_mode", key] = pred.model.decoder.border_mode
+        finally:
+            fused_tail.set_use_fused_tail(None)
+    return out
+
+
+@pytest.mark.parametrize("key", ["off_fp32", "v2_fp32", "unpacked_fp32"])
+def test_predict_mono_fast_borders_matches_jax_fp32(fast_runs, key):
+    """fast_borders, fp32, against the JAX program: disparity atol 2e-6 in
+    sigmoid units, depth rtol 1e-5. With the fused tail off every decoder
+    conv and the head take a zero border; with it on ("v2") level 0 stays
+    the reflect fused kernel and the head reflect, as in the JAX collapsed
+    decoder. Where the JAX program does not take its collapsed decoder
+    (no packed decoder) the port runs the reflect decoder: the fast_borders
+    run equals the one without it. Measured: 4.3e-7 to 4.5e-7 in sigmoid
+    units, depth 1.4e-6 to 1.7e-6 relative."""
+    got, want = fast_runs["port", key], fast_runs["jax", key]
+    for k in ("disp", "depth"):
+        assert got[k].shape == (2, *TAIL_HW) and got[k].dtype == np.float32
+    np.testing.assert_allclose((got["disp"] - LO) / (HI - LO), (want["disp"] - LO) / (HI - LO), atol=2e-6)
+    np.testing.assert_allclose(got["depth"], want["depth"], rtol=1e-5)
+    exact = fast_runs["exact", key]
+    if key == "unpacked_fp32":
+        assert fast_runs["border_mode", key] == "exact"
+        np.testing.assert_array_equal(got["depth"], exact["depth"])
+    else:
+        assert fast_runs["border_mode", key] == "fast"
+        assert not np.allclose(got["depth"], exact["depth"], rtol=1e-3)
+
+
+@pytest.mark.parametrize("key", ["off_bf16", "v2_bf16"])
+def test_predict_mono_fast_borders_matches_jax_bf16(fast_runs, key):
+    """fast_borders, bf16, against the JAX program: the limits the fused-tail
+    and fold_bn bf16 tests above hold (disparity 7e-3 in sigmoid units,
+    depth abs-rel 5e-3); the two programs round bf16 at other places. Measured:
+    3.17e-3 and 3.00e-3 in sigmoid units, depth abs-rel 1.72e-3 and
+    1.75e-3 (fused tail off and "v2")."""
+    got, want = fast_runs["port", key], fast_runs["jax", key]
+    s_err = np.abs(got["disp"] - want["disp"]).max() / (HI - LO)
+    assert s_err <= 7e-3, s_err
+    assert _abs_rel(got["depth"], want["depth"]) <= 5e-3
+
+
+def test_predict_mono_one_pixel_level_matches_jax(jax_predictor):
+    """A 32x64 network, whose level-4 features are 1x2 (a 1-pixel axis under
+    the reflect border), against the JAX program on the same weights, b2
+    40x70 frames resized to the net size: disparity atol 2e-6 in sigmoid
+    units, depth rtol 1e-5."""
+    variables = jax_predictor[1]
+    jcfg, cfg = (
+        dataclasses.replace(m.get("mono_kitti_192x640_fp32"),
+                            mono=dataclasses.replace(m.get("mono_kitti_192x640_fp32").mono,
+                                                     height=32, width=64))
+        for m in (jax_configs, configs)
+    )
+    frames = np.random.default_rng(9).integers(0, 256, (2, 40, 70, 3), dtype=np.uint8)
+    want = jax_api.predict_mono(jax_api.Predictor(jcfg, jax.tree_util.tree_map(jnp.asarray, variables)), frames)
+    model = MonoDepthNet(cfg.mono)
+    weights.load_state(model, weights.from_jax_variables(variables))
+    got = api.predict_mono(api.Predictor(cfg, model, "cpu"), frames)
+    assert got["depth"].shape == (2, 40, 70)
+    np.testing.assert_allclose((got["disp"] - LO) / (HI - LO), (want["disp"] - LO) / (HI - LO), atol=2e-6)
+    np.testing.assert_allclose(got["depth"], want["depth"], rtol=1e-5)
+
+
+def test_load_weights_single_pth_file(tmp_path, frames):
+    """One .pth state-dict file (the seed-0 tools/torch_ref state_dict, as
+    parity_abs_rel builds it): the port's load_weights gives the same depth
+    as the family's directory form of the same weights (encoder.pth +
+    depth.pth), and the JAX load_weights of the same file agrees at the fp32
+    tolerances (disparity atol 2e-6 in sigmoid units, depth rtol 1e-5)."""
     from scenedepthestimation_tpu_torch import benchmark
 
-    with pytest.raises(NotImplementedError, match="fast_borders"):
-        benchmark.run_bench(
-            "mono_kitti_384x1152_bench", batch_size=1, iters=1, warmup=0, device="cpu",
-            overrides={"mono.fast_borders": True, "mono.height": 64, "mono.width": 128},
-        )
+    torch.manual_seed(0)
+    state = benchmark._torch_ref().MonoDepthNet().state_dict()
+    state = {k: v for k, v in state.items() if not k.endswith("num_batches_tracked")}
+    torch.save(state, tmp_path / "model.pth")
+    (tmp_path / "family").mkdir()
+    for name, prefix in (("encoder.pth", "encoder."), ("depth.pth", "decoder.")):
+        torch.save({k: v for k, v in state.items() if k.startswith(prefix)}, tmp_path / "family" / name)
+    cfg = _small(configs)
+    got = api.predict_mono(api.load_weights(str(tmp_path / "model.pth"), cfg, device="cpu"), frames)
+    via_dir = api.predict_mono(api.load_weights(str(tmp_path / "family"), cfg, device="cpu"), frames)
+    for k in ("disp", "depth"):
+        np.testing.assert_array_equal(got[k], via_dir[k])
+    want = jax_api.predict_mono(jax_api.load_weights(str(tmp_path / "model.pth"), _small(jax_configs)), frames)
+    np.testing.assert_allclose((got["disp"] - LO) / (HI - LO), (want["disp"] - LO) / (HI - LO), atol=2e-6)
+    np.testing.assert_allclose(got["depth"], want["depth"], rtol=1e-5)
+
+
+def test_load_weights_rejects_orbax_and_unknown_paths(tmp_path):
+    """A directory without a .pth file is the JAX package's Orbax form: the
+    message names the conversion to .pth files. Any other path raises as
+    the JAX package's 'unrecognized checkpoint path'."""
+    orbax = tmp_path / "ckpt"
+    orbax.mkdir()
+    (orbax / "_CHECKPOINT_METADATA").write_text("{}")
+    with pytest.raises(ValueError, match="scenedepth export --weights .* --torch OUT"):
+        api.load_weights(str(orbax), _small(configs), device="cpu")
+    with pytest.raises(ValueError, match="unrecognized checkpoint path"):
+        api.load_weights(str(tmp_path / "weights.npz"), _small(configs), device="cpu")
 
 
 def test_parity_abs_rel_fold_bn_fp32_on_cpu():

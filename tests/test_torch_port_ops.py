@@ -120,8 +120,8 @@ def test_conv3x3_rejects_bad_input():
     x = torch.zeros(1, 4, 4, 3)
     with pytest.raises(ValueError, match="weight must be"):
         conv_block.conv3x3(x, torch.zeros(2, 4, 3, 3), torch.zeros(2))
-    with pytest.raises(ValueError, match="reflect border needs"):
-        conv_block.conv3x3(torch.zeros(1, 1, 4, 3), torch.zeros(2, 3, 3, 3), torch.zeros(2))
+    with pytest.raises(ValueError, match="needs H, W >= 1"):
+        conv_block.conv3x3(torch.zeros(1, 0, 4, 3), torch.zeros(2, 3, 3, 3), torch.zeros(2))
     with pytest.raises(ValueError, match="unknown activation"):
         conv_block.conv3x3(x, torch.zeros(2, 3, 3, 3), torch.zeros(2), activation="gelu")
     with pytest.raises(ValueError, match="runs on cpu or cuda"):
@@ -432,3 +432,125 @@ def test_winograd_rejects_bad_input():
         winograd.winograd_conv3x3_phases(phases[:3], u, torch.zeros(5))
     with pytest.raises(ValueError, match="weight must be"):
         winograd.transform_weights(torch.zeros(5, 3, 1, 1))
+
+
+def _jax_conv(x, k, bias, activation, border):
+    """The JAX package's forms of the bordered conv: conv3x3_xla for reflect
+    (jnp.pad repeats a lone pixel), jnp.pad(mode="edge") for edge, and the
+    collapsed decoder's fast-border _conv3x3_zero for zero; bias and the
+    activation after, in fp32."""
+    import jax
+    from jax import lax
+
+    from scenedepthestimation_tpu.ops.collapsed import _conv3x3_zero
+    from scenedepthestimation_tpu.ops.pallas.conv_block import conv3x3_xla
+
+    x, k, bias = jnp.asarray(x), jnp.asarray(k), jnp.asarray(bias)
+    if border == "reflect":
+        y = conv3x3_xla(x, k, bias, "none")
+    elif border == "edge":
+        xp = jnp.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)), mode="edge")
+        y = lax.conv_general_dilated(
+            xp, k, (1, 1), "VALID", dimension_numbers=("NHWC", "HWIO", "NHWC")
+        ) + bias
+    else:
+        y = _conv3x3_zero(x, k) + bias
+    act = {"elu": jax.nn.elu, "relu": jax.nn.relu, "sigmoid": jax.nn.sigmoid}
+    return np.asarray(act[activation](y) if activation in act else y)
+
+
+def _conv_inputs(rng, b, h, w, cin, cout):
+    x = rng.normal(size=(b, h, w, cin)).astype(np.float32)
+    k = (rng.normal(size=(3, 3, cin, cout)) * 0.1).astype(np.float32)
+    bias = (rng.normal(size=(cout,)) * 0.1).astype(np.float32)
+    return x, k, bias
+
+
+def _port_conv(x, k, bias, activation, border):
+    return _np(conv_block.conv3x3_plain(
+        torch.from_numpy(x), torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1))),
+        torch.from_numpy(bias), activation=activation, border=border,
+    ))
+
+
+@pytest.mark.parametrize("activation", ["elu", "relu", "sigmoid", "none"])
+def test_conv3x3_plain_zero_border_matches_jax(activation):
+    """border="zero" vs the JAX fast-border conv (_conv3x3_zero of
+    ops/collapsed.py, the form every decoder conv takes under
+    mono.fast_borders) plus bias and activation; fp32 atol 5e-6."""
+    rng = np.random.default_rng(12)
+    for shape in [(2, 16, 24, 8, 12), (1, 5, 7, 3, 5)]:
+        x, k, bias = _conv_inputs(rng, *shape)
+        np.testing.assert_allclose(
+            _port_conv(x, k, bias, activation, "zero"), _jax_conv(x, k, bias, activation, "zero"),
+            atol=5e-6, err_msg=f"{shape}",
+        )
+
+
+@pytest.mark.parametrize("border", ["reflect", "edge"])
+@pytest.mark.parametrize("hw", [(1, 7), (6, 1), (1, 1)], ids=["h1", "w1", "h1w1"])
+def test_conv3x3_plain_one_pixel_axes_match_jax(hw, border):
+    """A 1-pixel axis (the level-4 features of a 32x64 network are 1x2):
+    reflect repeats the pixel as jnp.pad(mode="reflect") does in
+    conv3x3_xla, edge as jnp.pad(mode="edge"); fp32 atol 5e-6."""
+    rng = np.random.default_rng(13)
+    x, k, bias = _conv_inputs(rng, 2, *hw, 5, 6)
+    np.testing.assert_allclose(
+        _port_conv(x, k, bias, "elu", border), _jax_conv(x, k, bias, "elu", border), atol=5e-6
+    )
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 5), (20, 12), (16, 8), (33, 17)])
+def test_slab_layout_feeds_a_plain_implicit_gemm(cin, cout):
+    """The tensor-core path's weight slab: (9, Cin rounded up to 16, Cout
+    rounded up to 8) elements, per tap and chunk of 16 input channels in
+    8 x 8 core matrices (8 output channels n, each 8 contiguous input
+    channels k), zero outside the weight. Read back as a K x N matrix per
+    tap, a plain implicit GEMM over it (unfold the zero-padded input tap by
+    tap, channels padded like the slab, one matmul) equals F.conv2d; fp32
+    atol 1e-5."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.normal(size=(2, 6, 9, cin)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(cout, cin, 3, 3)) * 0.1).astype(np.float32))
+    packed = conv_block.arrange_slab(w)  # a CPU weight: the plain arrangement
+    _, cin_pad, cout_pad = packed.shape
+    assert tuple(packed.shape) == conv_block.slab_shape(cin, cout) == (
+        9, -(-cin // 16) * 16, -(-cout // 8) * 8)
+    # (tap, kc, nb, kb, n8, k8) -> (tap, kc, kb, k8, nb, n8) = (tap, k, n)
+    slab = packed.reshape(9, cin_pad // 16, cout_pad // 8, 2, 8, 8).permute(0, 1, 3, 5, 2, 4)
+    slab = slab.reshape(9, cin_pad, cout_pad)
+    assert not slab[:, cin:].any() and not slab[:, :, cout:].any()
+    # The first core matrix: output channels 0-7, each with input channels 0-7.
+    np.testing.assert_array_equal(
+        _np(packed.reshape(-1)[:64].reshape(8, 8))[: min(cout, 8), : min(cin, 8)],
+        _np(w[:8, :8, 0, 0]),
+    )
+    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1))
+    b, h, wd = x.shape[0], x.shape[1], x.shape[2]
+    cols = F.unfold(xp, 3).reshape(b, cin, 9, h * wd).permute(0, 3, 2, 1)  # (B, HW, tap, Cin)
+    cols = F.pad(cols, (0, cin_pad - cin)).reshape(b, h * wd, 9 * cin_pad)
+    got = (cols @ slab.reshape(9 * cin_pad, cout_pad))[..., :cout]
+    want = F.conv2d(xp, w).permute(0, 2, 3, 1).reshape(b, h * wd, cout)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5)
+
+
+def test_conv3x3_module_keeps_its_slab_until_the_weight_changes():
+    """Conv3x3.slab() arranges once and returns the kept slab; an in-place
+    change of the weight (its _version) or a new storage (a dtype cast)
+    makes it arrange again."""
+    from scenedepthestimation_tpu_torch.models.unet_decoder import Conv3x3
+
+    m = Conv3x3(5, 7)
+    first = m.slab()
+    assert m.slab() is first
+    torch.testing.assert_close(first, conv_block.arrange_slab_plain(m.weight.detach()))
+    with torch.no_grad():
+        m.weight.add_(1.0)
+    second = m.slab()
+    assert second is not first
+    torch.testing.assert_close(second, conv_block.arrange_slab_plain(m.weight.detach()))
+    m.to(torch.bfloat16)
+    third = m.slab()
+    assert third.dtype == torch.bfloat16 and m.slab() is third

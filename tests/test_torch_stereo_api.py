@@ -71,20 +71,27 @@ def _assert_matches(got, want):
 
 def _port_predictor(variables, cfg, route, tmp_path):
     """The port's CPU predictor on the JAX weights, carried over by
-    from_jax_variables or by the JAX export_torch_dir -> load_torch_dir."""
+    from_jax_variables or by the JAX export_torch_dir -> load_weights of
+    the directory, of the directory with its one file renamed (every .pth
+    at the root is merged, as in the JAX package), or of that file alone."""
     if route == "jax_variables":
         model = StereoNet(cfg.stereo)
         weights.load_state(model, weights.from_jax_variables(variables))
         return api.Predictor(cfg, model, "cpu")
     assert set(torch_export.export_torch_dir(variables, str(tmp_path))) == {"stereo"}
-    return api.load_weights(str(tmp_path), cfg, device="cpu")
+    path = str(tmp_path)
+    if route == "torch_dir_renamed":
+        os.rename(tmp_path / "stereo.pth", tmp_path / "net.pth")
+    elif route == "torch_file":
+        path = str(tmp_path / "stereo.pth")
+    return api.load_weights(path, cfg, device="cpu")
 
 
-@pytest.mark.parametrize("route", ["jax_variables", "torch_dir"])
+@pytest.mark.parametrize("route", ["jax_variables", "torch_dir", "torch_dir_renamed", "torch_file"])
 def test_predict_stereo_matches_jax(jax_predictor, pairs, route, tmp_path):
     """predict_stereo of the port vs the JAX package's on the same weights,
     carried over by from_jax_variables or by the JAX export_torch_dir ->
-    the port's load_torch_dir."""
+    the port's load_weights (directory, renamed file, single file)."""
     jpred, variables = jax_predictor
     pred = _port_predictor(variables, _small(configs), route, tmp_path)
     left, right = pairs
