@@ -17,8 +17,10 @@ Phases, one line each (more for the per-shape kernel checks):
      odd W, inputs smaller than one tile, which split their channels),
      upsample_concat at its 4 shapes, each against its plain version on
      the card, with both times (CUDA events, median of 30 runs, L2 warm as
-     in the decoder); ptxas's lines for the conv3x3 kernels, and the
-     tensor-core (HGMMA) instructions in its bf16 kernel's SASS;
+     in the decoder); ptxas's lines for the conv3x3 kernels (the bf16
+     kernel's held to its registers and spills before its wgmma helpers
+     moved to common.cuh), and the tensor-core (HGMMA) instructions in its
+     bf16 kernel's SASS;
   4. end to end: load_weights(None, seed 0) + predict_mono on 375x1242
      frames, plain and with post_process: launch counts, shapes, finite
      values, agreement with the CPU run of the same weights, and ms/frame
@@ -52,11 +54,14 @@ Phases, one line each (more for the per-shape kernel checks):
  11. bf16 stereo serving: 2 PNG pairs through serve.serve_requests;
  12. fused tail kernel: fused_tail at mono_kitti_384x1152_bench's level 0
      (128, 192, 576, 32) -> (128, 384, 1152, 16) in bf16, config 1's
-     (1, 96, 320, 32) in fp32 and bf16, and ragged shapes (h = 2, odd w, C
-     not a multiple of 8), each against its plain version; at the first
-     three, its time beside the plain version's, the port's unfused chain's
-     (conv3x3, upsample2x, conv3x3) and a three-stage cuDNN chain's, its
-     bound and its ptxas line;
+     (1, 96, 320, 32) in fp32 and bf16, ragged shapes (h = 2, odd w, C
+     not a multiple of 8) and wide C1 in bf16 (96 and 160: 8-row tiles,
+     y0 staged and unstaged), each against its plain version, and the
+     refusal of a C1 too wide for shared memory; at the first three, its
+     time (bf16: with the weights arranged beforehand, the arrangement
+     timed apart) beside the plain version's, the port's
+     unfused chain's (conv3x3, upsample2x, conv3x3) and a three-stage cuDNN
+     chain's, its bound and share of it, and its ptxas lines;
  13. the judged bench path: benchmark.run_bench("mono_kitti_384x1152_bench")
      (b128, bf16, 384x1152) with the fused tail on, off, on: frames/s,
      launches per forward (on: 1 fused_tail, 9 conv3x3, 4 upsample_concat;
@@ -65,8 +70,8 @@ Phases, one line each (more for the per-shape kernel checks):
      the fused tail; and the unfused level 0's 2 conv3x3) on the inputs
      that forward gave it against its plain version, with the kernel's,
      the plain version's and cuDNN's times, the bound and the share of it
-     (conv3x3 with the slab its module made; the slab arrangement timed
-     apart),
+     (conv3x3 with the slab its module made, the fused tail with the slab
+     its decoder keeps; the arrangements timed apart),
      agreement with a CPU bf16 run at b2, and the depth abs-rel of bf16
      against the card's fp32 run (seeded weights at b128, the reference's
      seed-0 weights at b8);
@@ -74,19 +79,25 @@ Phases, one line each (more for the per-shape kernel checks):
      (<= 1e-4) and bf16 (<= 1e-3);
  15. Winograd kernel (kernel 5): winograd_conv3x3_phases on each of the 13
      stride-1 BasicBlock convs of one b128 bf16 folded bench forward, on the
-     inputs that forward gave it (captured as in phase 13), at config 1's four
-     stage shapes in fp32 with and without the residual, and at off-path
-     shapes (C, Co off 16 and below 8, odd Co, ragged tile counts) in both
-     dtypes, each against its plain version; the kernel's, the plain
-     version's and cuDNN's times, the bound and the ptxas lines;
+     inputs that forward gave it (captured as in phase 13) with each
+     weight's kept U, at config 1's four stage shapes in fp32 with and
+     without the residual, and at off-path shapes (C, Co off 16 and below
+     8, odd Co, ragged tile counts) in both dtypes, each against its plain
+     version; the kernel's time beside the earlier design's, the plain
+     version's, cuDNN's conv with bias and cuDNN's three-call chain (conv
+     with bias, residual add, ReLU), the bound and the share of it, the
+     time to make U, the ptxas lines and the tensor-core (HMMA) count in
+     the bf16 kernel's SASS;
  16. the folded path: run_bench with fold_bn off and on at b128 (frames/s,
      launches); on seeded weights with random BatchNorm terms, the folded
      fp32 encoder against the unfolded one, the bf16 folded encoder on cuDNN
      and on kernel 5 (its 13 stride-1 convs swapped onto the kernel, here
-     only) against the fp32 folded encoder, and each one's depth abs-rel
-     against the card's fp32 folded run at b128 (<= 2.5e-3); a profile of a
-     folded b128 forward; parity_abs_rel with fold_bn in fp32 (<= 1e-4) and
-     bf16 (<= 1e-3);
+     only, each weight's U kept: no weight transform after the first
+     forward) against the fp32 folded encoder, and each one's depth
+     abs-rel against the card's fp32 folded run at b128 (<= 2.5e-3), with
+     each route's device ms per forward; a profile of a folded b128
+     forward; parity_abs_rel with fold_bn in fp32 (<= 1e-4) and bf16
+     (<= 1e-3);
  17. repairs: mono_kitti_192x640_fp32 with mono.fast_borders (every
      decoder conv zero-bordered, fused tail off) on 375x1242 frames
      against a CPU run of the same weights; run_bench with fast_borders and
@@ -382,6 +393,13 @@ def sass_counts(_build, kernel: str, op: str) -> dict:
     return counts
 
 
+# ptxas's (registers, spill bytes) for the 16 conv3x3_tc_kernel instantiations
+# in build order, as built with its wgmma helpers in conv_block.cu, before
+# they moved to common.cuh (nvcc 12.9 for sm_90a): the move must leave them
+# as they were.
+CONV_TC_PTXAS = [(128, 0), (128, 0), (128, 0), (120, 0), (128, 44), (128, 12), (110, 0), (98, 0)] * 2
+
+
 def phase_kernels(conv_block, upcat) -> dict:
     rng = np.random.default_rng(0)
     lib = conv_block._build.lib()
@@ -391,6 +409,11 @@ def phase_kernels(conv_block, upcat) -> dict:
     for kernel in ("conv3x3_tc_kernel", "conv3x3_head_kernel", "conv3x3_kernel"):
         print(f"[3 conv3x3 ptxas] {kernel}: " + "; ".join(
             f"{a} {r} registers, {sp} bytes of spill stores" for a, r, sp in ptxas_lines(text, kernel)))
+    tc_ptxas = [(r, sp) for _, r, sp in ptxas_lines(text, "conv3x3_tc_kernel")]
+    check(tc_ptxas == CONV_TC_PTXAS,
+          f"conv3x3_tc_kernel ptxas lines {tc_ptxas} differ from {CONV_TC_PTXAS}")
+    print("[3 conv3x3 ptxas] conv3x3_tc_kernel: registers and spill stores of all 16 "
+          "instantiations as before the wgmma helpers moved to common.cuh")
     # The bf16 path's products are tensor-core instructions in the SASS.
     hgmma = sass_counts(conv_block._build, "conv3x3_tc_kernel", "HGMMA")
     check(len(hgmma) == 16 and min(hgmma.values()) > 0,
@@ -1002,6 +1025,15 @@ BENCH_B = 128
 # conv3x3 weight slabs a bf16 mono predictor on the card arranges once: the
 # decoder's ten Conv3x3 with Cout > 1 (the heads have Cout = 1).
 BENCH_SLABS = 10
+
+
+def _once(tail_on) -> dict:
+    """Launches a bf16 mono predictor on the card makes once, not per
+    forward: the conv3x3 slabs, and with the fused tail on its weight slab
+    (made at the first forward and kept by the decoder)."""
+    return {"conv3x3_slab": BENCH_SLABS, **({"fused_tail_weights": 1} if tail_on else {})}
+
+
 BENCH_ITERS = 10
 BENCH_WARMUP = 2
 # (name, (B, h, w, C1, C0, C0o), dtype) of the fused tail: the bench preset's
@@ -1015,7 +1047,15 @@ TAIL_EXTRA = [
     ("ragged", (2, 2, 7, 12, 5, 6), torch.bfloat16),
     ("ragged", (3, 17, 33, 40, 17, 19), torch.float32),
     ("ragged", (3, 17, 33, 40, 17, 19), torch.bfloat16),
+    # Wide C1: the bf16 kernel's 8-row tiles, with y0 staged (96) and, where
+    # the staging does not fit, written from the fragments (160, the widest
+    # it takes at C0 = C0o = 16).
+    ("wide", (2, 9, 40, 96, 16, 16), torch.bfloat16),
+    ("wide", (2, 9, 40, 160, 16, 16), torch.bfloat16),
 ]
+# The narrowest C1 the bf16 tail refuses at C0 = C0o = 16 (its tiles do not
+# fit the card's shared memory).
+TAIL_REFUSED_C1 = 176
 # Seeded LeCun-init weights put bf16 and fp32 depth further apart than the
 # 1e-3 budget of BASELINE.json, in the JAX package too (1.76e-3 at 64x128
 # in tests/test_torch_port_api.py); measured 1.14e-3 here at b128 on an
@@ -1078,8 +1118,11 @@ def phase_tail_kernels(ft, conv_block, _build) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(5)
     with open(os.path.join(os.path.dirname(_build.library_path()), "nvcc.log")) as f:
         text = f.read()
-    ptxas = "; ".join(ptxas_report(text, k, static_smem=False)
-                      for k in ("fused_tail_kernel", "fused_tail_tc_kernel"))
+    # fused_tail_tc_kernel<ZH, STAGED>: its mangled template arguments read back.
+    tc = [(re.match(r"ILi(\d+)ELb([01])E", a), r, sp) for a, r, sp in ptxas_lines(text, "fused_tail_tc_kernel")]
+    ptxas = ptxas_report(text, "fused_tail_kernel", static_smem=False) + "; fused_tail_tc_kernel: " + \
+        ", ".join(f"<{m.group(1)}, {'staged' if m.group(2) == '1' else 'unstaged'}> {r} registers, "
+                  f"{sp} bytes of spill stores" for m, r, sp in tc)
     smem = {dt: _build.lib().sde_fused_tail_smem(32, 16, 16, code)
             for dt, code in (("fp32", 0), ("bf16", 1))}
     res = None
@@ -1087,9 +1130,11 @@ def phase_tail_kernels(ft, conv_block, _build) -> dict:
         dt = "fp32" if dtype == torch.float32 else "bf16"
         args, err, tol, ok = _tail_case(ft, gen, shape, dtype)
         line = f"[12 fused_tail {dt}] {name} {shape[:4]} -> C0 {shape[4]} -> C0o {shape[5]}: max|err| {err:.3g} ({tol})"
-        if name != "ragged":
+        if name not in ("ragged", "wide"):
             wc = [w.contiguous(memory_format=torch.channels_last) for w in (args[1], args[3])]
-            fns = {"kernel": lambda: ft.fused_tail(*args),
+            # bf16: the weights arranged beforehand, as the decoder keeps them.
+            ws = ft.arrange_tail_weights(args[1], args[3]) if dtype == torch.bfloat16 else None
+            fns = {"kernel": lambda: ft.fused_tail(*args, wslab=ws),
                    "plain": lambda: ft.fused_tail_plain(*args),
                    "unfused chain": lambda: _unfused_chain(conv_block, *args),
                    "cudnn chain": lambda: _cudnn_chain(args[0], wc[0], args[2], wc[1], args[4])}
@@ -1098,18 +1143,33 @@ def phase_tail_kernels(ft, conv_block, _build) -> dict:
             b, h, w, c1, c0, c0o = shape
             y0_bytes = b * 4 * h * w * c0o * args[0].element_size()
             ops = 2 * b * (h * w * 9 * c1 * c0 + 4 * h * w * 9 * c0 * c0o)
+            arrange_ms = (time_ms(lambda: ft.arrange_tail_weights(args[1], args[3]), runs=runs)
+                          if ws is not None else 0.0)
             r = {"err": err, "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["cudnn chain"],
-                 "chain_ms": t["unfused chain"]}
+                 "chain_ms": t["unfused chain"], "arrange_ms": arrange_ms}
             add_bound(r, nbytes(*args) + y0_bytes, ops, dt)
             by = max(r["bound_parts"], key=r["bound_parts"].get)
-            line += (f"; ms: kernel {t['kernel']:.4f}, plain {t['plain']:.4f}, port's unfused chain "
+            line += (f"; ms: kernel {t['kernel']:.4f} ({100 * r['bound_ms'] / t['kernel']:.1f}% of "
+                     f"the bound), plain {t['plain']:.4f}, port's unfused chain "
                      f"(conv3x3, upsample2x, conv3x3) {t['unfused chain']:.4f}, cuDNN chain (three "
                      f"stages: pad+conv2d+elu, interpolate, pad+conv2d+elu) {t['cudnn chain']:.4f}; "
-                     f"bound {r['bound_ms']:.4f} ms ({by})")
+                     f"bound {r['bound_ms']:.4f} ms ({by}); weight arrangement {arrange_ms:.4f} ms "
+                     "(once per decoder)")
             if name == "bench":
                 res = r
         print(line)
         check(ok, f"fused_tail {dt} {shape} disagrees with its plain version")
+    y1 = torch.zeros((1, 4, 4, TAIL_REFUSED_C1), dtype=torch.bfloat16, device="cuda")
+    w00 = torch.zeros((16, TAIL_REFUSED_C1, 3, 3), dtype=torch.bfloat16, device="cuda")
+    w01 = torch.zeros((16, 16, 3, 3), dtype=torch.bfloat16, device="cuda")
+    b0 = torch.zeros((16,), dtype=torch.bfloat16, device="cuda")
+    try:
+        ft.fused_tail(y1, w00, b0, w01, b0)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    print(f"[12 fused_tail bf16] C1 {TAIL_REFUSED_C1} -> 16 -> 16 refused: {refused!r}")
+    check("shared memory" in refused, f"fused_tail bf16 at C1 = {TAIL_REFUSED_C1} was not refused")
     print(f"[12 fused_tail build] {ptxas} (fp32 on the CUDA cores, bf16 on the tensor cores); "
           f"dynamic shared memory a block at 32 -> 16 -> 16: {smem} bytes")
     return res
@@ -1188,6 +1248,7 @@ def _bench_kernels(conv_block, upcat, fts, forward) -> dict:
     4 upsample_concat and the fused tail; then the two conv3x3 calls of
     the unfused level 0 on the same level-0 input. Times: median of
     BENCH_KERNEL_RUNS CUDA-event pairs."""
+    from scenedepthestimation_tpu_torch.ops.cuda import fused_tail as ft
     from scenedepthestimation_tpu_torch.ops.upsample import upsample2x
 
     calls = _capture(forward, (conv_block, "conv3x3"), (upcat, "upsample_concat"),
@@ -1216,14 +1277,26 @@ def _bench_kernels(conv_block, upcat, fts, forward) -> dict:
         cat["ms"] += ms
         cat["plain_ms"] += plain_ms
         add_bound(cat, _upcat_bytes(*args), 0, "bf16")
-    (y1, w00, b00, w01, b01), _ = calls["fused_tail"][0]
-    got = fts.fused_tail(y1, w00, b00, w01, b01)
+    (y1, w00, b00, w01, b01), tail_kw = calls["fused_tail"][0]
+    ws = tail_kw["wslab"]  # the decoder's kept slab
+    check(ws is not None and torch.equal(ws, ft.arrange_tail_weights(w00, w01)),
+          "the decoder's kept fused-tail slab differs from its weights' arrangement")
+    got = fts.fused_tail(y1, w00, b00, w01, b01, wslab=ws)
     ref = fts.fused_tail_plain(y1, w00, b00, w01, b01)
     err = (got.float() - ref.float()).abs().max().item()
     ref_max = ref.float().abs().max().item()
+    y0_bytes = nbytes(got)
     del got, ref
+    tail_ms = time_ms(lambda: fts.fused_tail(y1, w00, b00, w01, b01, wslab=ws), runs=BENCH_KERNEL_RUNS)
+    arrange_ms = time_ms(lambda: ft.arrange_tail_weights(w00, w01), runs=BENCH_KERNEL_RUNS)
+    b, h, w, c1 = y1.shape
+    c0, c0o = w00.shape[0], w01.shape[0]
+    t, by = bound_ms(nbytes(y1, w00, b00, w01, b01) + y0_bytes,
+                     2 * b * (h * w * 9 * c1 * c0 + 4 * h * w * 9 * c0 * c0o), "bf16")
     print(f"[13 bench fused_tail bf16] level 0 {tuple(y1.shape)} on the forward's input: "
-          f"max|err| {err:.3g} (1e-2 x max|ref| = {1e-2 * ref_max:.3g})")
+          f"max|err| {err:.3g} (1e-2 x max|ref| = {1e-2 * ref_max:.3g}) kernel {tail_ms:.4f} ms, "
+          f"bound {t:.4f} ms ({by}), {100 * t / tail_ms:.1f}% of the bound; weight arrangement "
+          f"{arrange_ms:.4f} ms (once per decoder)")
     check(err <= 1e-2 * ref_max, "fused_tail on the bench forward's input disagrees")
     # The fused tail off: upconv_0_0 and upconv_0_1 as two conv3x3 calls.
     _bench_conv(conv_block, "upconv_0_0 (off)", (y1, w00, b00), {})
@@ -1249,9 +1322,10 @@ def phase_bench(sdt, benchmark, fts, _build, conv_block, upcat) -> dict:
         launches = dict(_build.LAUNCHES)
         want = ({"fused_tail": 1, "conv3x3": 9, "upsample_concat": 4} if flag
                 else {"conv3x3": 11, "upsample_concat": 4})
-        check(launches == {**{k: v * forwards for k, v in want.items()}, "conv3x3_slab": BENCH_SLABS},
+        once = _once(flag)
+        check(launches == {**{k: v * forwards for k, v in want.items()}, **once},
               f"fused tail {flag}: {launches} launches over {forwards} forwards, want {want} each "
-              f"and {BENCH_SLABS} slabs once")
+              f"and {once} once")
         check(np.isfinite(r["checksum"]) and r["checksum"] > 0, f"bench checksum {r['checksum']}")
         per_forward["on" if flag else "off"] = want
         runs.append((flag, r, torch.cuda.max_memory_allocated() / 2**30))
@@ -1347,6 +1421,13 @@ WINO_BENCH_NAMES = ["layer1_0.conv1", "layer1_0.conv2", "layer1_1.conv1", "layer
                     "layer2_0.conv2", "layer2_1.conv1", "layer2_1.conv2",
                     "layer3_0.conv2", "layer3_1.conv1", "layer3_1.conv2",
                     "layer4_0.conv2", "layer4_1.conv1", "layer4_1.conv2"]
+# Each bench call's time with the earlier design of the bf16 kernel
+# (mma.sync products, the output transform on the CUDA cores every 16
+# channels, V built once per 64 output channels), measured on an NVIDIA H100
+# 80GB HBM3 at 700 W, in WINO_BENCH_NAMES order: the yardstick of the
+# redesign.
+WINO_EARLIER_MS = [1.6716, 2.0815, 1.7173, 2.0353, 1.7300, 1.5386, 1.7782, 1.5853, 1.5011, 1.5524,
+                   1.5089, 1.4921, 1.4560]
 # Card vs card, the kernel-routed folded encoder against the cuDNN one: each
 # level's max|err| against the fp32 folded encoder on the same input within
 # twice the cuDNN bf16 encoder's (the kernel rounds each conv once, after
@@ -1393,48 +1474,74 @@ def _wino_bound(args):
     return nb, ops, ops * 36 / 16
 
 
-def _wino_library_ms(x_nchw, weight, bias, runs) -> float:
+def _wino_library_ms(x_nchw, weight, bias, runs, residual=None):
     """cuDNN's conv with bias (F.conv2d, zero pad 1, channels-last) on the
-    same input, without residual or ReLU: row 1's convention."""
+    same input, without residual or ReLU (row 1's convention); and, with a
+    residual, the served folded path's three-call chain: conv with bias,
+    residual add, ReLU."""
     import torch.nn.functional as F
 
     wc = weight.contiguous(memory_format=torch.channels_last)
     bb = bias.to(x_nchw.dtype)
-    return time_ms(lambda: F.conv2d(x_nchw, wc, bb, 1, 1), runs=runs)
+
+    def chain():
+        y = F.conv2d(x_nchw, wc, bb, 1, 1)
+        if residual is not None:
+            y += residual
+        return F.relu_(y)
+
+    return (time_ms(lambda: F.conv2d(x_nchw, wc, bb, 1, 1), runs=runs),
+            time_ms(chain, runs=runs))
 
 
-def _wino_timed(wino, tag, args, x_nchw, weight, kind, runs, r=None):
+def _wino_timed(wino, tag, args, x_nchw, weight, kind, runs, r=None, res_nchw=None,
+                earlier_ms=None, make_u=None):
     """Kernel, plain and cuDNN times and the bound of one call, printed; and
-    summed into r when given."""
+    summed into r when given. ``make_u``, when given, is how the call's U
+    was made and kept (timed apart), ``earlier_ms`` the earlier design's
+    time for the call."""
     err, tol, ok = _wino_case(wino, args, kind)
     ms = time_ms(lambda: wino.winograd_conv3x3_phases(*args), runs=runs)
     plain_ms = time_ms(lambda: wino.winograd_conv3x3_phases_plain(*args), runs=max(3, runs // 2))
-    lib_ms = _wino_library_ms(x_nchw, weight, args[2], runs)
+    lib_ms, chain_ms = _wino_library_ms(x_nchw, weight, args[2], runs, res_nchw)
     nb, ops, direct = _wino_bound(args)
     t, by = bound_ms(nb, ops, kind)
     b, hp, wp, c = args[0][0].shape
-    print(f"[15 winograd {kind}] {tag} (B, H, W, C) {(b, 2 * hp, 2 * wp, c)} -> {args[1].shape[2]}"
+    co = args[1].shape[2]
+    extra = ""
+    if make_u is not None:
+        arrange_ms = time_ms(make_u, runs=runs)
+        extra = (f"; earlier design {earlier_ms:.4f} ms; making U {arrange_ms:.4f} ms (once per "
+                 "weight)")
+        if r is not None:
+            r["arrange_ms"] = r.get("arrange_ms", 0.0) + arrange_ms
+            r["earlier_ms"] = r.get("earlier_ms", 0.0) + earlier_ms
+    print(f"[15 winograd {kind}] {tag} (B, H, W, C) {(b, 2 * hp, 2 * wp, c)} -> {co}"
           f"{' + residual' if args[3] is not None else ''}: max|err| {err:.3g} ({tol}) kernel "
-          f"{ms:.4f} ms plain {plain_ms:.4f} ms cuDNN {lib_ms:.4f} ms bound {t:.4f} ms ({by}: "
-          f"{nb / 1e6:.1f} MB, {ops / 1e9:.1f} GFLOP of Winograd products; the direct conv "
-          f"{direct / 1e9:.1f})")
+          f"{ms:.4f} ms ({100 * t / ms:.1f}% of the bound) plain {plain_ms:.4f} ms cuDNN conv+bias "
+          f"{lib_ms:.4f} ms, cuDNN chain (conv+bias, + residual, ReLU) {chain_ms:.4f} ms; bound "
+          f"{t:.4f} ms ({by}: {nb / 1e6:.1f} MB, {ops / 1e9:.1f} GFLOP of Winograd products; the "
+          f"direct conv {direct / 1e9:.1f}){extra}")
     check(ok, f"winograd {kind} {tag} disagrees with its plain version")
     if r is not None:
         r["err"] = max(r["err"], err)
         r["ms"] += ms
         r["plain_ms"] += plain_ms
         r["library_ms"] += lib_ms
+        r["chain_ms"] = r.get("chain_ms", 0.0) + chain_ms
         add_bound(r, nb, ops, kind)
 
 
 def _winograd_route(wino_ops):
     """The folded encoder's conv3x3_bias_relu on the winograd kernel: NCHW
-    views of channels-last memory in and out, NHWC to the kernel."""
+    views of channels-last memory in and out, NHWC to the kernel, each
+    weight's U made at its first call and kept (kept_u_slab)."""
     def nhwc(t):
         return None if t is None else t.permute(0, 2, 3, 1)
 
     def conv(x, weight, bias, residual=None):
-        return wino_ops.winograd_conv3x3(nhwc(x), weight, bias, nhwc(residual)).permute(0, 3, 1, 2)
+        return wino_ops.winograd_conv3x3(nhwc(x), weight, bias, nhwc(residual),
+                                         u_slab=wino_ops.kept_u_slab(weight)).permute(0, 3, 1, 2)
 
     return conv
 
@@ -1476,8 +1583,13 @@ def phase_winograd_kernels(sdt, wino_ops, wino, folded_mod, _build) -> dict:
     off-path shapes, each against its plain version."""
     with open(os.path.join(os.path.dirname(_build.library_path()), "nvcc.log")) as f:
         text = f.read()
-    ptxas = "; ".join(ptxas_report(text, k, static_smem=False)
-                      for k in ("winograd_tc_kernel", "winograd_fp32_kernel"))
+    # The bf16 products are tensor-core instructions (mma.sync: HMMA) in the SASS.
+    hmma = sass_counts(_build, "winograd_tc_kernel", "HMMA")
+    check(len(hmma) == 1 and min(hmma.values()) > 0,
+          f"winograd_tc_kernel without HMMA in its SASS: {hmma}")
+    ptxas = ("; ".join(ptxas_report(text, k, static_smem=False)
+                       for k in ("winograd_tc_kernel", "winograd_fp32_kernel"))
+             + f"; HMMA instructions in winograd_tc_kernel's SASS: {max(hmma.values())}")
     cfg = sdt.configs.get(BENCH_CONFIG)
     p = _seeded_folded(sdt, cfg, "bfloat16")
     frames = np.random.default_rng(0).integers(0, 256, (BENCH_B, cfg.height, cfg.width, 3), dtype=np.uint8)
@@ -1486,13 +1598,16 @@ def phase_winograd_kernels(sdt, wino_ops, wino, folded_mod, _build) -> dict:
     check(len(calls) == 13, f"folded bench forward: {len(calls)} stride-1 conv calls, want 13")
     del img
     res = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    for name, (args, _) in zip(WINO_BENCH_NAMES, calls):
+    for name, earlier, (args, _) in zip(WINO_BENCH_NAMES, WINO_EARLIER_MS, calls):
         x, weight, bias = args[:3]
         residual = args[3] if len(args) > 3 else None
         nhwc = (lambda t: None if t is None else t.permute(0, 2, 3, 1))
-        kargs = _wino_inputs(wino_ops, nhwc(x), weight, bias, nhwc(residual), torch.bfloat16)
+        # As the kernel route passes them: the weight's kept U, the bias as it is.
+        ph, _, _, rph = _wino_inputs(wino_ops, nhwc(x), weight, bias, nhwc(residual), torch.bfloat16)
+        kargs = (ph, wino_ops.kept_u_slab(weight), bias, rph)
         _wino_timed(wino, f"bench {name}", kargs + (True,), x, weight, "bf16",
-                    BENCH_KERNEL_RUNS, res)
+                    BENCH_KERNEL_RUNS, res, res_nchw=residual, earlier_ms=earlier,
+                    make_u=lambda: wino_ops.transform_weights(weight).to(weight.dtype))
         del kargs
     del calls, p
     torch.cuda.empty_cache()
@@ -1532,9 +1647,12 @@ def phase_winograd_kernels(sdt, wino_ops, wino, folded_mod, _build) -> dict:
           f"no TF32): max|err| {err:.3g} (atol 1e-4)")
     check(err <= 1e-4, "winograd_conv3x3 disagrees with the direct conv")
     by = max(res["bound_parts"], key=res["bound_parts"].get)
-    print(f"[15 winograd] the bench forward's 13 calls: kernel {res['ms']:.4f} ms, plain "
-          f"{res['plain_ms']:.4f}, cuDNN {res['library_ms']:.4f}, bound {res['bound_ms']:.4f} "
-          f"({by}); {ptxas}")
+    print(f"[15 winograd] the bench forward's 13 calls: kernel {res['ms']:.4f} ms "
+          f"({100 * res['bound_ms'] / res['ms']:.1f}% of the bound), earlier design "
+          f"{res['earlier_ms']:.4f}, plain {res['plain_ms']:.4f}, cuDNN conv+bias "
+          f"{res['library_ms']:.4f}, cuDNN chain (conv+bias, + residual, ReLU) "
+          f"{res['chain_ms']:.4f}, bound {res['bound_ms']:.4f} ({by}); making the 13 U "
+          f"{res['arrange_ms']:.4f} ms, once per weight; {ptxas}")
     return res
 
 
@@ -1556,9 +1674,9 @@ def phase_folded(sdt, benchmark, wino_ops, folded_mod, _build) -> dict:
                                 overrides={"mono.fold_bn": fold})
         launches = dict(_build.LAUNCHES)
         want = {"fused_tail": 1, "conv3x3": 9, "upsample_concat": 4}
-        check(launches == {**{k: v * forwards for k, v in want.items()}, "conv3x3_slab": BENCH_SLABS},
+        check(launches == {**{k: v * forwards for k, v in want.items()}, **_once(True)},
               f"fold_bn {fold}: {launches} launches over {forwards} forwards, want {want} each "
-              f"and {BENCH_SLABS} slabs once")
+              f"and {_once(True)} once")
         check(np.isfinite(r["checksum"]) and r["checksum"] > 0, f"bench checksum {r['checksum']}")
         fps[fold] = r["value"]
 
@@ -1594,19 +1712,28 @@ def phase_folded(sdt, benchmark, wino_ops, folded_mod, _build) -> dict:
         return float(torch.mean(torch.abs(a - b) / b))
 
     out = {}
-    saved = folded_mod.conv3x3_bias_relu
+    saved = folded_mod.conv3x3_bias_relu, wino_ops.transform_weights
+    transforms = [0]  # weight transforms (kept_u_slab's einsum) in the measured forward
+
+    def counting_transform(w):
+        transforms[0] += 1
+        return saved[1](w)
+
     for route in ("cudnn", "winograd"):
         if route == "winograd":
             folded_mod.conv3x3_bias_relu = _winograd_route(wino_ops)
+            wino_ops.transform_weights = counting_transform
         try:
             with torch.inference_mode():
                 feats = p16.model.encoder(x16)
             p16.mono_forward(img)  # warm-up
             torch.cuda.synchronize()
             _build.LAUNCHES.clear()
+            transforms[0] = 0
             depth = p16.mono_forward(img)["depth"]
             torch.cuda.synchronize()
             launches = dict(_build.LAUNCHES)
+            n_transforms = transforms[0]
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(3):
@@ -1616,16 +1743,18 @@ def phase_folded(sdt, benchmark, wino_ops, folded_mod, _build) -> dict:
             if route == "winograd":
                 prof_route = _profile(lambda: p16.mono_forward(img), n=1)
         finally:
-            folded_mod.conv3x3_bias_relu = saved
-        out[route] = {"errs": _enc_errs(feats, f32), "launches": launches,
+            folded_mod.conv3x3_bias_relu, wino_ops.transform_weights = saved
+        out[route] = {"errs": _enc_errs(feats, f32), "launches": launches, "transforms": n_transforms,
                       "abs_rel": abs_rel(depth, depth32), "ms": start.elapsed_time(end) / 3,
                       "feats": feats}
         check(depth.shape == (BENCH_B, cfg.height, cfg.width) and bool(torch.isfinite(depth).all()),
               f"{route} folded bf16 depth not finite")
         check(out[route]["abs_rel"] <= SEEDED_ABS_REL,
               f"{route} folded bf16 vs fp32 depth abs-rel {out[route]['abs_rel']:.3g} > {SEEDED_ABS_REL}")
-    check(out["winograd"]["launches"].get("winograd") == 13,
-          f"kernel-routed folded forward launches {out['winograd']['launches']}, want 13 winograd")
+    check(out["winograd"]["launches"].get("winograd") == 13 and out["winograd"]["transforms"] == 0,
+          f"kernel-routed folded forward: launches {out['winograd']['launches']}, "
+          f"{out['winograd']['transforms']} weight transforms; want 13 winograd and no weight "
+          "transform after the first forward")
     check(out["cudnn"]["launches"].get("winograd", 0) == 0, "the served folded path launched winograd")
     route_errs = _enc_errs(out["winograd"]["feats"], out["cudnn"]["feats"])
     for lvl, (ew, ec) in enumerate(zip(out["winograd"]["errs"], out["cudnn"]["errs"])):
@@ -1655,7 +1784,8 @@ def phase_folded(sdt, benchmark, wino_ops, folded_mod, _build) -> dict:
         print(f"[16 folded] bf16 folded encoder on {route}: features vs the fp32 folded encoder "
               f"max|err| per level " + ", ".join(f"{e:.3g}" for e in r["errs"])
               + f"; depth abs-rel vs the card's fp32 folded run b{BENCH_B} {r['abs_rel']:.3g} "
-              f"(<= {SEEDED_ABS_REL:g}); launches {r['launches']}; device ms per forward "
+              f"(<= {SEEDED_ABS_REL:g}); launches {r['launches']}, weight transforms "
+              f"{r['transforms']}; device ms per forward "
               f"{r['ms']:.3f} (CUDA events, 3 forwards)")
     print(f"[16 folded] winograd route vs cuDNN route, bf16 features max|err| per level "
           + ", ".join(f"{e:.3g}" for e in route_errs)
@@ -1709,7 +1839,7 @@ def phase_repairs(sdt, benchmark, fts, _build) -> None:
                                 overrides={"mono.fast_borders": fast})
         launches = dict(_build.LAUNCHES)
         want = {"fused_tail": 1, "conv3x3": 9, "upsample_concat": 4}
-        check(launches == {**{k: v * forwards for k, v in want.items()}, "conv3x3_slab": BENCH_SLABS},
+        check(launches == {**{k: v * forwards for k, v in want.items()}, **_once(True)},
               f"fast_borders {fast}: {launches} launches over {forwards} forwards")
         check(np.isfinite(r["checksum"]) and r["checksum"] > 0, f"bench checksum {r['checksum']}")
         fps.append(("fast" if fast else "reflect", r["value"]))

@@ -21,8 +21,8 @@
 // GFLOP on the bf16 tensor cores. In fp32 (config 1, b1) the same work on
 // the CUDA cores is bound by its FMAs.
 //
-// Two kernels, one per dtype, on the same tiling: one block of 256 threads
-// per (image, 8 x 32 tile of z), i.e. a 16 x 64 tile of y0. The block
+// Two kernels, one per dtype. fp32: one block of 256 threads per (image,
+// 8 x 32 tile of z), i.e. a 16 x 64 tile of y0. The block
 // stages the (8+4) x (32+4) haloed tile of y1 in shared memory, with the
 // reflect border taken from indices at load time (no padded copy in device
 // memory), computes z on the (8+2) x (32+2) tile around its own into
@@ -39,12 +39,14 @@
 //   weights: per output phase (a, b) = (row % 2, col % 2) it is a 2x2 conv
 //   over z whose taps are fp32 sums of the 3x3 taps (the per-phase form of
 //   fused_tail_pallas_v2), 4 instead of 9 taps per output pixel.
-// * bf16 (fused_tail_tc_kernel, tensor cores): both stages as implicit
-//   GEMMs on mma.sync.m16n8k16 with fp32 sums (see the comment above it).
+// * bf16 (fused_tail_tc_kernel, tensor cores): persistent blocks over 16 x
+//   32 z tiles, both stages as implicit GEMMs on mma.sync.m16n8k16 with
+//   fp32 sums, weights arranged once per call, the next tile's halo in
+//   flight during stage 2, y0 written as whole 16-byte vectors (see the
+//   comment above it).
 //
-// Later work: wgmma and TMA loads of the y1 tile; the weights arranged
-// once per call instead of by every block; stores of whole 16-byte pixels
-// through shared memory.
+// Later work: TMA loads of the halo; wgmma if the products, not the
+// bytes, set the pace.
 #include "common.cuh"
 
 namespace sde {
@@ -355,304 +357,404 @@ cudaError_t launch(const void* y1, const void* w00, const void* b00,
 
 // ---- bf16: both stages as implicit GEMMs on the tensor cores ----------
 //
-// The same tile and halo as above, 8 warps. Every operand is staged once,
-// in bf16, channels innermost with a row pitch of (channels rounded up to
-// 16) + 8, so the 8 rows g of a fragment load fall in distinct banks: the
-// haloed y1 tile, the z tile, W00 as [tap][n][k] and W01 as
-// [tap][n][k], zero-padded past C1, C0 and C0o.
-// * Stage 1: M = the 340 haloed z positions (22 m16 tiles, up to 3 a
-//   warp), N = 16 z channels a pass, K = 9 taps x C1: one
-//   mma.sync.m16n8k16 per (m16 tile, n8 tile, tap, 16 channels), A rows
-//   read at the tap's offset in the y1 tile. z = bf16(ELU(acc + b00)).
-// * Stage 2: M = the 256 z positions of the block (16 m16 tiles of 16
-//   positions along a row, 2 a warp), for each of the 4 output phases;
-//   N = 16 output channels a pass; K = 9 taps x C0 with the 3x3 taps kept
-//   apart (summed phase taps would round in bf16): tap (ky, kx) of phase
-//   (a, b) reads z at row offset floor((a + ky - 1) / 2) and column offset
-//   floor((b + kx - 1) / 2), indices clamped to the image.
-constexpr int kTcWarps = kThreads / 32;
-constexpr int kZPos = kZHH * kZWW;                                  // 340
-constexpr int kYPos = kYH * kYW;                                    // 432
-constexpr int kM1Tiles = (kZPos + 15) / 16;                         // 22
-constexpr int kM1PerWarp = (kM1Tiles + kTcWarps - 1) / kTcWarps;    // 3
-constexpr int kM2Tiles = kZH * kZW / 16;                            // 16
-constexpr int kM2PerWarp = kM2Tiles / kTcWarps;                     // 2
-static_assert(kZW % 16 == 0 && kM2Tiles % kTcWarps == 0, "stage-2 m16 tiles");
+// Persistent blocks of 16 warps, one an SM, each walking over z tiles of
+// ZH x 32 (ZH = 16, or 8 where the channels leave too little shared
+// memory), so a y0 tile of 2ZH x 64. The halo the block reads is (ZH+4) x
+// 36 pixels of y1 for ZH x 32 of its own: 1.41x at ZH = 16 (1.69x at 8).
+// Operands are staged in bf16, channels innermost with a row pitch of
+// (channels rounded up to 16) + 8, so the 8 rows of an ldmatrix fall in
+// distinct banks: the haloed y1 tile, the z tile, and both weights, which
+// sde_fused_tail_arrange laid out once per call as [tap][n][k] and each
+// block copies in with 16-byte cp.async once in its lifetime.
+// * Stage 1: M = the (ZH+2) x 34 haloed z positions (up to 3 m16 tiles a
+//   warp), N = 16 z channels a pass, K = 9 taps x C1; A and B through
+//   ldmatrix, mma.sync.m16n8k16 with fp32 sums. z = bf16(ELU(acc + b00)).
+// * Then the next tile's y1 halo is requested (16-byte cp.async) into the
+//   y1 buffer stage 1 has finished with, and lands while stage 2 computes.
+// * Stage 2: M = the ZH x 32 z positions (m16 tiles of 16 along a row), for
+//   each of the 4 output phases; N = 16 output channels a pass; K = 9 taps
+//   x C0 with the 3x3 taps kept apart (summed phase taps would round in
+//   bf16): tap (ky, kx) of phase (a, b) reads z at row offset floor((a +
+//   ky - 1) / 2) and column offset floor((b + kx - 1) / 2), indices clamped
+//   to the image. Only 9 distinct (row, column) offsets occur, so each A
+//   fragment is loaded once and feeds the 36 (phase, tap) products that
+//   read it; the 9 taps' B fragments stay in registers.
+// * Each warp stages its 2 x 32 y0 pixels (16 channels) in shared memory
+//   and writes them as 16-byte vectors, neighbouring lanes on neighbouring
+//   addresses: whole pixels, whole rows. Where the 48 KB of staging do not
+//   fit beside the wider channels' tiles (C1 from 129 to 160 at C0 = C0o =
+//   16), the 8-row tile writes channel pairs straight from the fragments
+//   (STAGED = false), so the kernel takes every shape it took before.
+constexpr int kTcThreads = 512;
+constexpr int kTcWarps = kTcThreads / 32;
+constexpr int kTZW = 32;             // z columns a tile
+constexpr int kTYW = kTZW + 4;       // y1 halo columns
+constexpr int kTZWW = kTZW + 2;      // z columns with stage 2's halo
+constexpr int kStgPitch = 16 + 8;    // y0 staging pitch (bf16)
+constexpr int kStgElems = 2 * 32 * kStgPitch;      // a warp: 2 y0 rows x 32 pixels
+
+template <int ZH>
+struct TailTile {
+  static constexpr int YH = ZH + 4, ZHH = ZH + 2;
+  static constexpr int YPOS = YH * kTYW;
+  static constexpr int ZPOS = ZHH * kTZWW;
+  static constexpr int M1 = (ZPOS + 15) / 16;                    // stage-1 m16 tiles
+  static constexpr int M1W = (M1 + kTcWarps - 1) / kTcWarps;     // a warp, at most
+  static constexpr int M2 = ZH * kTZW / 16;                      // stage-2 m16 tiles
+  static constexpr int M2W = M2 / kTcWarps;
+  static_assert(M2 % kTcWarps == 0, "stage-2 m16 tiles fill the warps");
+};
 
 // Offsets (bf16 elements) into the dynamic shared memory, and row pitches.
 struct TcLayout {
+  int zh;              // z rows a tile: 16 or 8
+  bool staged;         // y0 staged in shared memory for 16-byte stores
   int c1p, c0p, c0op;  // C1, C0 rounded up to 16 (K); C0o rounded up to 16 (N)
   int p1, p0;          // row pitches: c1p + 8, c0p + 8
-  int zs, w1, w2;      // offsets of z, W00, W01 (y1 at 0)
+  int zs, w1, w2, stg; // offsets of z, W00, W01, the y0 staging (y1 at 0)
   long long bytes;
 };
 
-TcLayout tc_layout(int C1, int C0, int C0o) {
+TcLayout tc_layout_for(int C1, int C0, int C0o, int zh, bool staged = true) {
   TcLayout L;
+  L.zh = zh;
+  L.staged = staged;
   L.c1p = (C1 + 15) / 16 * 16;
   L.c0p = (C0 + 15) / 16 * 16;
   L.c0op = (C0o + 15) / 16 * 16;
   L.p1 = L.c1p + 8;
   L.p0 = L.c0p + 8;
-  L.zs = kYPos * L.p1;
-  L.w1 = L.zs + kZPos * L.p0;
+  L.zs = (zh + 4) * kTYW * L.p1;
+  L.w1 = L.zs + (zh + 2) * kTZWW * L.p0;
   L.w2 = L.w1 + 9 * L.c0p * L.p1;
-  L.bytes = 2LL * (L.w2 + 9 * L.c0op * L.p0);
+  L.stg = L.w2 + 9 * L.c0op * L.p0;
+  L.bytes = 2LL * (L.stg + (staged ? kTcWarps * kStgElems : 0));
   return L;
 }
 
-// The A fragment of rows `lo` (row g) and `hi` (row g + 8), each already
-// at this thread's channel offset 2q: a0..a3 of mma.m16n8k16.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint16_t* lo,
-                                       const uint16_t* hi) {
-  a[0] = lds32(lo);
-  a[1] = lds32(hi);
-  a[2] = lds32(lo + 8);
-  a[3] = lds32(hi + 8);
+// The first of 16 rows staged, 8 rows staged, 8 rows unstaged that fits
+// the card's 227 KB a block.
+TcLayout tc_layout(int C1, int C0, int C0o) {
+  TcLayout L = tc_layout_for(C1, C0, C0o, 16);
+  if (L.bytes > 232448) L = tc_layout_for(C1, C0, C0o, 8);
+  if (L.bytes > 232448) L = tc_layout_for(C1, C0, C0o, 8, false);
+  return L;
 }
 
-// W (N, K, 3, 3) -> dst[tap][n][k] with row pitch `pitch`, zero for n >= N
-// or k >= K, over np x kp. A thread copies the 9 contiguous taps of one
-// (n, k).
-__device__ __forceinline__ void stage_weights(uint16_t* dst,
-                                              const uint16_t* __restrict__ w,
-                                              int N, int K, int np, int kp,
-                                              int pitch) {
-  for (int i = threadIdx.x; i < np * kp; i += kThreads) {
-    const int n = i / kp, k = i - n * kp;
-    const bool valid = n < N && k < K;
-    const uint16_t* src = w + ((size_t)n * K + k) * 9;
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap)
-      dst[(tap * np + n) * pitch + k] = valid ? src[tap] : uint16_t(0);
-  }
+// ELU of an fp32 sum headed for one bf16 rounding, without branches:
+// expm1 by its Taylor polynomial on [-0.5, 0] (error below 3e-7 relative)
+// and by __expf - 1 below (about 1e-6). expm1f, whose branches diverge
+// within a warp, was the kernel's largest single cost.
+__device__ __forceinline__ float elu_fast(float v) {
+  const float x = fminf(v, 0.f);
+  const float p =
+      x * fmaf(x, fmaf(x, fmaf(x, fmaf(x, fmaf(x, fmaf(x, 1.f / 5040, 1.f / 720), 1.f / 120),
+                                             1.f / 24), 1.f / 6), 0.5f), 1.f);
+  const float e = __expf(x) - 1.f;
+  return v > 0.f ? v : (x > -0.5f ? p : e);
 }
 
-// grid: (B * tiles_h * tiles_w). Same tensors as fused_tail_kernel, bf16.
-// `vec`: C1 % 8 == 0 and y1 16-byte aligned, so 8 channels load as one
-// 16-byte vector. Three blocks an SM (80 registers, a few spilled) ran
-// the bench shape 8% faster than two without spills: the block's
-// staging and barriers then overlap other blocks' products.
-__global__ void __launch_bounds__(kThreads, 3)
-    fused_tail_tc_kernel(const uint16_t* __restrict__ y1,
-                         const uint16_t* __restrict__ w00,
+// grid: min(tiles, SMs), persistent. y1 (B, h, w, C1) bf16; wslab from
+// sde_fused_tail_arrange; y0 (B, 2h, 2w, C0o). `vec`: C1 % 8 == 0 and y1
+// 16-byte aligned (16-byte halo copies); `vec_out`: C0o % 8 == 0 and y0
+// 16-byte aligned (16-byte stores).
+template <int ZH, bool STAGED>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    fused_tail_tc_kernel(const uint16_t* __restrict__ y1, const uint16_t* __restrict__ wslab,
                          const __nv_bfloat16* __restrict__ b00,
-                         const uint16_t* __restrict__ w01,
                          const __nv_bfloat16* __restrict__ b01,
-                         __nv_bfloat16* __restrict__ y0, int h, int w, int C1,
-                         int C0, int C0o, int tiles_h, int tiles_w,
-                         TcLayout L, bool vec) {
+                         __nv_bfloat16* __restrict__ y0, int h, int w, int C1, int C0, int C0o,
+                         int tiles_h, int tiles_w, long long ntiles, TcLayout L, bool vec,
+                         bool vec_out) {
+  using T = TailTile<ZH>;
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   uint16_t* sm = reinterpret_cast<uint16_t*>(dyn_smem);
-  uint16_t* ys = sm;          // [kYPos][p1]
-  uint16_t* zs = sm + L.zs;   // [kZPos][p0]
+  uint16_t* ys = sm;          // [YPOS][p1]
+  uint16_t* zs = sm + L.zs;   // [ZPOS][p0]
   uint16_t* w1s = sm + L.w1;  // [9][c0p][p1]
   uint16_t* w2s = sm + L.w2;  // [9][c0op][p0]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, q = lane & 3;  // mma group and thread in group
-  const long long tile = blockIdx.x;
-  const int tw = static_cast<int>(tile % tiles_w);
-  const int th = static_cast<int>((tile / tiles_w) % tiles_h);
-  const long long b = tile / ((long long)tiles_w * tiles_h);
-  const int zr0 = th * kZH;
-  const int zc0 = tw * kZW;
-  const uint16_t* y1b = y1 + (size_t)b * h * w * C1;
+  const int g = lane >> 2, q = lane & 3;
+  uint16_t* stg = sm + L.stg + warp * kStgElems;  // [2][2 * kTZW][kStgPitch]
+  // ldmatrix lane roles: A rows lane & 15 at channels (lane >> 4) * 8; B
+  // (non-transposed, rows n) rows (lane & 7) + 8 (lane >> 4) at channels
+  // ((lane >> 3) & 1) * 8.
+  const int a_k = (lane >> 4) * 8;
+  const int b_n = (lane & 7) + ((lane >> 4) << 3), b_k = ((lane >> 3) & 1) * 8;
 
-  // y1 rows zr0-2 .. zr0+kZH+1, columns zc0-2 .. zc0+kZW+1, reflected.
-  if (vec) {
-    const int nv = L.c1p / 8;
-    for (int i = tid; i < kYPos * nv; i += kThreads) {
-      const int pos = i / nv, c = (i % nv) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (c < C1) {
-        const int hs = reflect_index(zr0 - 2 + pos / kYW, h);
-        const int wsrc = reflect_index(zc0 - 2 + pos % kYW, w);
-        val = *reinterpret_cast<const uint4*>(y1b + ((size_t)hs * w + wsrc) * C1 + c);
+  // Both weights, once: 16-byte rows of the slab into the padded rows.
+  {
+    const int v1 = L.c1p / 8, v0 = L.c0p / 8;
+    const int n1 = 9 * L.c0p * v1, n2 = 9 * L.c0op * v0;
+    for (int i = tid; i < n1 + n2; i += kTcThreads) {
+      if (i < n1) {
+        cp_async16(w1s + (i / v1) * L.p1 + (i % v1) * 8, wslab + (long long)i * 8, true);
+      } else {
+        const int j = i - n1;
+        cp_async16(w2s + (j / v0) * L.p0 + (j % v0) * 8, wslab + ((long long)n1 + j) * 8, true);
       }
-      *reinterpret_cast<uint4*>(ys + pos * L.p1 + c) = val;
-    }
-  } else {
-    for (int i = tid; i < kYPos * L.c1p; i += kThreads) {
-      const int pos = i / L.c1p, c = i % L.c1p;
-      uint16_t v = 0;
-      if (c < C1) {
-        const int hs = reflect_index(zr0 - 2 + pos / kYW, h);
-        const int wsrc = reflect_index(zc0 - 2 + pos % kYW, w);
-        v = y1b[((size_t)hs * w + wsrc) * C1 + c];
-      }
-      ys[pos * L.p1 + c] = v;
     }
   }
-  stage_weights(w1s, w00, C0, C1, L.c0p, L.c1p, L.p1);
-  stage_weights(w2s, w01, C0o, C0, L.c0op, L.c0p, L.p0);
-  __syncthreads();
 
-  // ---- stage 1: z on the haloed tile ---------------------------------
-  // Rows g and g+8 of this warp's m16 tiles: their (tap 0, 0) position in
-  // the y1 tile; positions past the tile recompute the last one.
-  int ybase[kM1PerWarp][2];
-#pragma unroll
-  for (int j = 0; j < kM1PerWarp; ++j)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int p = min((warp + kTcWarps * j) * 16 + g + 8 * hh, kZPos - 1);
-      ybase[j][hh] = ((p / kZWW) * kYW + p % kZWW) * L.p1 + 2 * q;
-    }
-  for (int nz0 = 0; nz0 < L.c0p; nz0 += 16) {
-    float acc[kM1PerWarp][2][4];
-#pragma unroll
-    for (int j = 0; j < kM1PerWarp; ++j)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-        acc[j][nt][0] = acc[j][nt][1] = acc[j][nt][2] = acc[j][nt][3] = 0.f;
-    for (int k0 = 0; k0 < L.c1p; k0 += 16) {
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int toff = ((tap / 3) * kYW + tap % 3) * L.p1 + k0;
-        uint32_t bf[2][2];
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const uint16_t* bp = w1s + (tap * L.c0p + nz0 + nt * 8 + g) * L.p1 + k0 + 2 * q;
-          bf[nt][0] = lds32(bp);
-          bf[nt][1] = lds32(bp + 8);
+  // y1 rows zr0-2 .. zr0+ZH+1, columns zc0-2 .. zc0+33 of tile t, reflected.
+  auto load_y1 = [&](long long t) {
+    const int tw = static_cast<int>(t % tiles_w);
+    const int th = static_cast<int>((t / tiles_w) % tiles_h);
+    const long long b = t / ((long long)tiles_w * tiles_h);
+    const int zr0 = th * ZH, zc0 = tw * kTZW;
+    const uint16_t* y1b = y1 + (size_t)b * h * w * C1;
+    if (vec) {
+      const int nv = L.c1p / 8;
+      for (int i = tid; i < T::YPOS * nv; i += kTcThreads) {
+        const int pos = i / nv, c = (i - pos * nv) * 8;
+        const int hs = reflect_index(zr0 - 2 + pos / kTYW, h);
+        const int wsrc = reflect_index(zc0 - 2 + pos % kTYW, w);
+        const bool ok = c < C1;
+        cp_async16(ys + pos * L.p1 + c, ok ? y1b + ((size_t)hs * w + wsrc) * C1 + c : y1, ok);
+      }
+    } else {
+      for (int i = tid; i < T::YPOS * L.c1p; i += kTcThreads) {
+        const int pos = i / L.c1p, c = i - pos * L.c1p;
+        uint16_t v = 0;
+        if (c < C1) {
+          const int hs = reflect_index(zr0 - 2 + pos / kTYW, h);
+          const int wsrc = reflect_index(zc0 - 2 + pos % kTYW, w);
+          v = y1b[((size_t)hs * w + wsrc) * C1 + c];
         }
-#pragma unroll
-        for (int j = 0; j < kM1PerWarp; ++j) {
-          if (warp + kTcWarps * j >= kM1Tiles) continue;  // warp-uniform
-          uint32_t a[4];
-          load_a(a, ys + ybase[j][0] + toff, ys + ybase[j][1] + toff);
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) mma_bf16(acc[j][nt], a, bf[nt][0], bf[nt][1]);
-        }
+        ys[pos * L.p1 + c] = v;
       }
     }
-    // Channels past C0 have zero weights and bias: their z is ELU(0) = 0.
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int n = nz0 + nt * 8 + 2 * q;
-      const float bv0 = n < C0 ? __bfloat162float(b00[n]) : 0.f;
-      const float bv1 = n + 1 < C0 ? __bfloat162float(b00[n + 1]) : 0.f;
-#pragma unroll
-      for (int j = 0; j < kM1PerWarp; ++j)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int p = (warp + kTcWarps * j) * 16 + g + 8 * hh;
-          if (p >= kZPos) continue;
-          *reinterpret_cast<uint32_t*>(zs + p * L.p0 + n) =
-              pack_bf16x2(elu(acc[j][nt][2 * hh] + bv0),
-                          elu(acc[j][nt][2 * hh + 1] + bv1));
-        }
-    }
-  }
-  __syncthreads();
+  };
 
-  // ---- stage 2: per output phase, a 9-tap conv over z -> y0 ------------
-  // m16 tile t = warp + 8j covers z row zr0 + t/2, columns zc0 + (t%2)*16
-  // + [0, 16); the warp takes its tiles one after the other. Local z rows
-  // (x kZWW) and columns for offsets -1, 0, +1, clamped to the image
-  // first; local index = global - (zr0 - 1).
+  if (blockIdx.x < ntiles) load_y1(blockIdx.x);
+  cp_async_commit();
   const int H2 = 2 * h, W2 = 2 * w;
-  const bool even = (C0o & 1) == 0;
-  for (int j = 0; j < kM2PerWarp; ++j) {
-    const int t = warp + kTcWarps * j;
-    const int gi = zr0 + t / (kZW / 16);
-    const int gj0 = zc0 + (t % (kZW / 16)) * 16;  // first z column of the tile
-    int zrow[3], zcol[2][3];
+
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t's y1 (and the weights) landed; stage 2 of t - grid is done
+    const int tw = static_cast<int>(t % tiles_w);
+    const int th = static_cast<int>((t / tiles_w) % tiles_h);
+    const long long b = t / ((long long)tiles_w * tiles_h);
+    const int zr0 = th * ZH, zc0 = tw * kTZW;
+
+    // ---- stage 1: z on the haloed tile -------------------------------
+    int abase[T::M1W];
 #pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      zrow[d] = (min(max(gi - 1 + d, 0), h - 1) - (zr0 - 1)) * kZWW;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        zcol[hh][d] = min(max(gj0 + g + 8 * hh - 1 + d, 0), w - 1) - (zc0 - 1);
+    for (int j = 0; j < T::M1W; ++j) {
+      const int p = min((warp + kTcWarps * j) * 16 + (lane & 15), T::ZPOS - 1);
+      abase[j] = ((p / kTZWW) * kTYW + p % kTZWW) * L.p1 + a_k;
     }
-    for (int n0 = 0; n0 < L.c0op; n0 += 16) {
-      float acc[4][2][4];
+    for (int nz0 = 0; nz0 < L.c0p; nz0 += 16) {
+      float acc[T::M1W][2][4];
 #pragma unroll
-      for (int p = 0; p < 4; ++p)
+      for (int j = 0; j < T::M1W; ++j)
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt)
-          acc[p][nt][0] = acc[p][nt][1] = acc[p][nt][2] = acc[p][nt][3] = 0.f;
-      for (int k0 = 0; k0 < L.c0p; k0 += 16) {
-        const uint16_t* zk = zs + k0 + 2 * q;
+          acc[j][nt][0] = acc[j][nt][1] = acc[j][nt][2] = acc[j][nt][3] = 0.f;
+      for (int k0 = 0; k0 < L.c1p; k0 += 16) {
 #pragma unroll
-        for (int ky = 0; ky < 3; ++ky)
+        for (int tap = 0; tap < 9; ++tap) {
+          uint32_t bf[4];
+          ldsm_x4(bf, w1s + (tap * L.c0p + nz0 + b_n) * L.p1 + k0 + b_k);
+          const int toff = ((tap / 3) * kTYW + tap % 3) * L.p1 + k0;
 #pragma unroll
-          for (int kx = 0; kx < 3; ++kx) {
-            const int tap = ky * 3 + kx;
-            uint32_t bf[2][2];
-#pragma unroll
-            for (int nt = 0; nt < 2; ++nt) {
-              const uint16_t* bp = w2s + (tap * L.c0op + n0 + nt * 8 + g) * L.p0 + k0 + 2 * q;
-              bf[nt][0] = lds32(bp);
-              bf[nt][1] = lds32(bp + 8);
-            }
-#pragma unroll
-            for (int p = 0; p < 4; ++p) {
-              // z offsets floor((a + ky - 1) / 2), floor((b + kx - 1) / 2),
-              // as indices 0..2 into the -1, 0, +1 tables.
-              const int dr = ((p >> 1) + ky + 1) >> 1;
-              const int dc = ((p & 1) + kx + 1) >> 1;
-              uint32_t a[4];
-              load_a(a, zk + (zrow[dr] + zcol[0][dc]) * L.p0,
-                     zk + (zrow[dr] + zcol[1][dc]) * L.p0);
-#pragma unroll
-              for (int nt = 0; nt < 2; ++nt) mma_bf16(acc[p][nt], a, bf[nt][0], bf[nt][1]);
-            }
-          }
-      }
-      if (gi >= h) continue;
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int n = n0 + nt * 8 + 2 * q;
-        if (n >= C0o) continue;
-        const float bv0 = __bfloat162float(b01[n]);
-        const float bv1 = n + 1 < C0o ? __bfloat162float(b01[n + 1]) : 0.f;
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int gj = gj0 + g + 8 * hh;
-          if (gj >= w) continue;
-#pragma unroll
-          for (int p = 0; p < 4; ++p) {
-            const int orow = 2 * gi + (p >> 1);
-            const int ocol = 2 * gj + (p & 1);
-            const float v0 = elu(acc[p][nt][2 * hh] + bv0);
-            const float v1 = elu(acc[p][nt][2 * hh + 1] + bv1);
-            __nv_bfloat16* dst = y0 + (((size_t)b * H2 + orow) * W2 + ocol) * C0o + n;
-            if (even) {
-              *reinterpret_cast<uint32_t*>(dst) = pack_bf16x2(v0, v1);
-            } else {
-              dst[0] = __float2bfloat16(v0);
-              if (n + 1 < C0o) dst[1] = __float2bfloat16(v1);
-            }
+          for (int j = 0; j < T::M1W; ++j) {
+            if (warp + kTcWarps * j >= T::M1) continue;  // warp-uniform
+            uint32_t a[4];
+            ldsm_x4(a, ys + abase[j] + toff);
+            mma_bf16(acc[j][0], a, bf[0], bf[1]);
+            mma_bf16(acc[j][1], a, bf[2], bf[3]);
           }
         }
+      }
+      // Channels past C0 have zero weights and bias: their z is ELU(0) = 0.
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int n = nz0 + nt * 8 + 2 * q;
+        const float bv0 = n < C0 ? __bfloat162float(b00[n]) : 0.f;
+        const float bv1 = n + 1 < C0 ? __bfloat162float(b00[n + 1]) : 0.f;
+#pragma unroll
+        for (int j = 0; j < T::M1W; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int p = (warp + kTcWarps * j) * 16 + g + 8 * hh;
+            if (p >= T::ZPOS) continue;
+            *reinterpret_cast<uint32_t*>(zs + p * L.p0 + n) =
+                pack_bf16x2(elu_fast(acc[j][nt][2 * hh] + bv0), elu_fast(acc[j][nt][2 * hh + 1] + bv1));
+          }
+      }
+    }
+    __syncthreads();  // z is complete; the y1 buffer is free
+    if (t + gridDim.x < ntiles) load_y1(t + gridDim.x);
+    cp_async_commit();
+
+    // ---- stage 2: per output phase, a 9-tap conv over z -> y0 ---------
+    // m16 tile s = warp + 16j covers z row zr0 + s / 2, columns zc0 +
+    // (s % 2) * 16 + [0, 16). Local z rows (x 34) and this lane's A row's
+    // columns for offsets -1, 0, +1, clamped to the image first; local
+    // index = global - (zr0 - 1).
+#pragma unroll
+    for (int j = 0; j < T::M2W; ++j) {
+      const int s = warp + kTcWarps * j;
+      const int gi = zr0 + s / (kTZW / 16);
+      const int gj0 = zc0 + (s % (kTZW / 16)) * 16;
+      int zrow[3], zcol[3];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        zrow[d] = (min(max(gi - 1 + d, 0), h - 1) - (zr0 - 1)) * kTZWW;
+        zcol[d] = min(max(gj0 + (lane & 15) - 1 + d, 0), w - 1) - (zc0 - 1);
+      }
+      for (int n0 = 0; n0 < L.c0op; n0 += 16) {
+        float acc[4][2][4];
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            acc[p][nt][0] = acc[p][nt][1] = acc[p][nt][2] = acc[p][nt][3] = 0.f;
+        for (int k0 = 0; k0 < L.c0p; k0 += 16) {
+          uint32_t bw[9][4];
+#pragma unroll
+          for (int tap = 0; tap < 9; ++tap)
+            ldsm_x4(bw[tap], w2s + (tap * L.c0op + n0 + b_n) * L.p0 + k0 + b_k);
+#pragma unroll
+          for (int dr = 0; dr < 3; ++dr)
+#pragma unroll
+            for (int dc = 0; dc < 3; ++dc) {
+              uint32_t a[4];
+              ldsm_x4(a, zs + (zrow[dr] + zcol[dc]) * L.p0 + k0 + a_k);
+#pragma unroll
+              for (int p = 0; p < 4; ++p)
+#pragma unroll
+                for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+                  for (int kx = 0; kx < 3; ++kx) {
+                    if ((((p >> 1) + ky + 1) >> 1) != dr || (((p & 1) + kx + 1) >> 1) != dc)
+                      continue;  // resolved at compile time
+                    mma_bf16(acc[p][0], a, bw[ky * 3 + kx][0], bw[ky * 3 + kx][1]);
+                    mma_bf16(acc[p][1], a, bw[ky * 3 + kx][2], bw[ky * 3 + kx][3]);
+                  }
+            }
+        }
+        if constexpr (!STAGED) {
+          // ELU(acc + b01), one rounding, channel pairs straight to y0.
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const int n = n0 + nt * 8 + 2 * q;
+            if (gi >= h || n >= C0o) continue;
+            const float bv0 = __bfloat162float(b01[n]);
+            const float bv1 = n + 1 < C0o ? __bfloat162float(b01[n + 1]) : 0.f;
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              if (gj0 + g + 8 * hh >= w) continue;
+#pragma unroll
+              for (int p = 0; p < 4; ++p) {
+                const int px = 2 * (g + 8 * hh) + (p & 1);
+                __nv_bfloat16* dst =
+                    y0 + (((size_t)b * H2 + 2 * gi + (p >> 1)) * W2 + 2 * gj0 + px) * C0o + n;
+                const uint32_t v = pack_bf16x2(elu_fast(acc[p][nt][2 * hh] + bv0),
+                                               elu_fast(acc[p][nt][2 * hh + 1] + bv1));
+                dst[0] = *reinterpret_cast<const __nv_bfloat16*>(&v);
+                if (n + 1 < C0o) dst[1] = reinterpret_cast<const __nv_bfloat16*>(&v)[1];
+              }
+            }
+          }
+          continue;
+        }
+        // ELU(acc + b01), one rounding, staged as [row][pixel][channel].
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int n = n0 + nt * 8 + 2 * q;
+          const float bv0 = n < C0o ? __bfloat162float(b01[n]) : 0.f;
+          const float bv1 = n + 1 < C0o ? __bfloat162float(b01[n + 1]) : 0.f;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int p = 0; p < 4; ++p) {
+              const int px = 2 * (g + 8 * hh) + (p & 1);
+              *reinterpret_cast<uint32_t*>(stg + ((p >> 1) * 32 + px) * kStgPitch + nt * 8 + 2 * q) =
+                  pack_bf16x2(elu_fast(acc[p][nt][2 * hh] + bv0), elu_fast(acc[p][nt][2 * hh + 1] + bv1));
+            }
+        }
+        __syncwarp();
+        // 2 rows x 32 pixels x 16 channels: 128 vectors of 8 channels.
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int item = lane + 32 * r;
+          const int row = item >> 6, px = (item >> 1) & 31, half = item & 1;
+          const int n = n0 + half * 8;
+          if (gi >= h || gj0 + (px >> 1) >= w || n >= C0o) continue;
+          const uint16_t* from = stg + (row * 32 + px) * kStgPitch + half * 8;
+          __nv_bfloat16* dst =
+              y0 + (((size_t)b * H2 + 2 * gi + row) * W2 + 2 * gj0 + px) * C0o + n;
+          if (vec_out) {
+            *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(from);
+          } else {
+            for (int e = 0; e < 8 && n + e < C0o; ++e)
+              dst[e] = *reinterpret_cast<const __nv_bfloat16*>(from + e);
+          }
+        }
+        __syncwarp();
       }
     }
   }
 }
 
-cudaError_t launch_tc(const void* y1, const void* w00, const void* b00,
-                      const void* w01, const void* b01, void* y0, int B, int h,
-                      int w, int C1, int C0, int C0o, cudaStream_t stream) {
-  const int tiles_h = (h + kZH - 1) / kZH;
-  const int tiles_w = (w + kZW - 1) / kZW;
-  const long long blocks = (long long)B * tiles_h * tiles_w;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const TcLayout L = tc_layout(C1, C0, C0o);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_tail_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L.bytes));
+// W00 (C0, C1, 3, 3) and W01 (C0o, C0, 3, 3), bf16 -> slab: W00 as [tap][n
+// < c0p][k < c1p], then W01 as [tap][n < c0op][k < c0p], zero past the
+// channels.
+__global__ void fused_tail_arrange_kernel(const uint16_t* __restrict__ w00,
+                                          const uint16_t* __restrict__ w01,
+                                          uint16_t* __restrict__ slab, int C1, int C0, int C0o,
+                                          int c1p, int c0p, int c0op) {
+  const int n1 = 9 * c0p * c1p, n2 = 9 * c0op * c0p;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n1 + n2; e += gridDim.x * blockDim.x) {
+    const bool first = e < n1;
+    const int i = first ? e : e - n1;
+    const int kp = first ? c1p : c0p, np = first ? c0p : c0op;
+    const int N = first ? C0 : C0o, K = first ? C1 : C0;
+    const int k = i % kp, n = (i / kp) % np, tap = i / (kp * np);
+    const uint16_t* wk = first ? w00 : w01;
+    slab[e] = (n < N && k < K) ? wk[((size_t)n * K + k) * 9 + tap] : uint16_t(0);
+  }
+}
+
+template <int ZH, bool STAGED>
+cudaError_t launch_tc_zh(const void* y1, const void* wslab, const void* b00, const void* b01,
+                         void* y0, int B, int h, int w, int C1, int C0, int C0o,
+                         const TcLayout& L, int device, cudaStream_t stream) {
+  const int tiles_h = (h + ZH - 1) / ZH;
+  const int tiles_w = (w + kTZW - 1) / kTZW;
+  const long long ntiles = (long long)B * tiles_h * tiles_w;
+  int sms = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long blocks = std::min<long long>(ntiles, sms);
+  auto kernel = &fused_tail_tc_kernel<ZH, STAGED>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(L.bytes));
   if (err != cudaSuccess) return err;
   const bool vec = C1 % 8 == 0 && reinterpret_cast<std::uintptr_t>(y1) % 16 == 0;
-  fused_tail_tc_kernel<<<static_cast<unsigned>(blocks), kThreads, L.bytes,
-                         stream>>>(
-      static_cast<const uint16_t*>(y1), static_cast<const uint16_t*>(w00),
-      static_cast<const __nv_bfloat16*>(b00), static_cast<const uint16_t*>(w01),
-      static_cast<const __nv_bfloat16*>(b01), static_cast<__nv_bfloat16*>(y0), h,
-      w, C1, C0, C0o, tiles_h, tiles_w, L, vec);
+  const bool vec_out = C0o % 8 == 0 && reinterpret_cast<std::uintptr_t>(y0) % 16 == 0;
+  kernel<<<static_cast<unsigned>(blocks), kTcThreads, L.bytes, stream>>>(
+      static_cast<const uint16_t*>(y1), static_cast<const uint16_t*>(wslab),
+      static_cast<const __nv_bfloat16*>(b00), static_cast<const __nv_bfloat16*>(b01),
+      static_cast<__nv_bfloat16*>(y0), h, w, C1, C0, C0o, tiles_h, tiles_w, ntiles, L, vec,
+      vec_out);
   return cudaGetLastError();
+}
+
+cudaError_t launch_tc(const void* y1, const void* wslab, const void* b00, const void* b01,
+                      void* y0, int B, int h, int w, int C1, int C0, int C0o, int device,
+                      cudaStream_t stream) {
+  const TcLayout L = tc_layout(C1, C0, C0o);
+  if (L.zh == 16)
+    return launch_tc_zh<16, true>(y1, wslab, b00, b01, y0, B, h, w, C1, C0, C0o, L, device, stream);
+  if (L.staged)
+    return launch_tc_zh<8, true>(y1, wslab, b00, b01, y0, B, h, w, C1, C0, C0o, L, device, stream);
+  return launch_tc_zh<8, false>(y1, wslab, b00, b01, y0, B, h, w, C1, C0, C0o, L, device, stream);
 }
 
 }  // namespace
@@ -665,21 +767,46 @@ extern "C" long long sde_fused_tail_smem(int C1, int C0, int C0o, int dtype) {
   return sde::tc_layout(C1, C0, C0o).bytes;
 }
 
+// Elements of the bf16 weight slab sde_fused_tail_arrange writes.
+extern "C" long long sde_fused_tail_slab_elems(int C1, int C0, int C0o) {
+  const sde::TcLayout L = sde::tc_layout_for(C1, C0, C0o, 16);
+  return 9LL * L.c0p * L.c1p + 9LL * L.c0op * L.c0p;
+}
+
+// w00 (C0, C1, 3, 3), w01 (C0o, C0, 3, 3) contiguous bf16 -> the slab the
+// bf16 kernel copies (sde_fused_tail_slab_elems elements).
+extern "C" int sde_fused_tail_arrange(const void* w00, const void* w01, void* slab, int C1,
+                                      int C0, int C0o, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const sde::TcLayout L = sde::tc_layout_for(C1, C0, C0o, 16);
+  const long long n = sde_fused_tail_slab_elems(C1, C0, C0o);
+  const int blocks = static_cast<int>(std::min<long long>((n + 255) / 256, 1024));
+  sde::fused_tail_arrange_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(w00), static_cast<const uint16_t*>(w01),
+      static_cast<uint16_t*>(slab), C1, C0, C0o, L.c1p, L.c0p, L.c0op);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // y1 (B, h, w, C1), w00 (C0, C1, 3, 3), b00 (C0), w01 (C0o, C0, 3, 3),
-// b01 (C0o) in `dtype`, all contiguous; y0 (B, 2h, 2w, C0o) in `dtype`.
-// h, w >= 2 (the reflect border). A C0 whose z tile does not fit the
-// device's shared memory (sde_fused_tail_smem) is refused at launch.
+// b01 (C0o) in `dtype`, all contiguous; y0 (B, 2h, 2w, C0o) in `dtype`;
+// wslab (bf16 only) from sde_fused_tail_arrange, 16-byte aligned. h, w >=
+// 2 (the reflect border). Channels whose tiles do not fit the device's
+// shared memory (sde_fused_tail_smem) are refused at launch.
 extern "C" int sde_fused_tail(const void* y1, const void* w00, const void* b00,
-                              const void* w01, const void* b01, void* y0,
+                              const void* w01, const void* b01, const void* wslab, void* y0,
                               int B, int h, int w, int C1, int C0, int C0o,
                               int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (h < 2 || w < 2) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == sde::kFloat32)
+  if (dtype == sde::kFloat32) {
     err = sde::launch(y1, w00, b00, w01, b01, y0, B, h, w, C1, C0, C0o, s);
-  else
-    err = sde::launch_tc(y1, w00, b00, w01, b01, y0, B, h, w, C1, C0, C0o, s);
+  } else {
+    if (wslab == nullptr || reinterpret_cast<std::uintptr_t>(wslab) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = sde::launch_tc(y1, wslab, b00, b01, y0, B, h, w, C1, C0, C0o, device, s);
+  }
   return static_cast<int>(err);
 }

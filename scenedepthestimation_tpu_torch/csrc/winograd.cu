@@ -37,14 +37,22 @@
 // The transform is linear, so only those four live across the C loop.
 // * bf16 (winograd_tc_kernel): the products on mma.sync.m16n8k16 (bf16
 //   in, fp32 sums), 16 channels a chunk; 8 warps as 4 (16 tiles) x 2 (32
-//   output channels).
+//   output channels). The output transform runs on the tensor cores too:
+//   each product with a nonzero coefficient is an mma of V_k with U_k, or
+//   with -U_k (the bf16 fragments' sign bits flipped, exact), accumulating
+//   straight into the output phase's fp32 sums, which live over the whole
+//   C loop. That is 36 mma per chunk and n8 tile instead of 16 mma and 144
+//   fp32 FMAs on the CUDA cores (on an H100, 7-8% faster at every stage of
+//   the bench encoder, and 84 bytes of spill stores instead of 216;
+//   PERF.md).
 // * fp32 (winograd_fp32_kernel, CUDA cores, no TF32): 8 channels a chunk;
 //   each thread a 4 tiles x 4 channels block.
 // C and Co need not be multiples of anything: channels past C are zero in
 // V and U, outputs past Co are not written.
 //
-// Later work: wgmma and TMA; V built once for all Co blocks; the next
-// chunk's loads in flight during the products; 16-byte stores.
+// Later work: V built once for all Co blocks; 16-byte stores. PERF.md §6
+// lists the designs measured slower than this one (wgmma over a cluster,
+// loads ahead in registers, warp-specialized stages).
 #include "common.cuh"
 
 namespace sde {
@@ -59,13 +67,14 @@ struct WinoArgs {
   long long sxb, sxh, sxw;
   const void* r[4];  // residual phases, r[0] == nullptr: none
   long long srb, srh, srw;
-  const void* u;      // (16, C, Co) in the phases' dtype
-  const float* bias;  // (Co)
-  void* y[4];         // output phases
+  const void* u;     // (16, C, Co) in the phases' dtype
+  const void* bias;  // (Co), fp32 or (bf16 path) bf16
+  void* y[4];        // output phases
   long long syb, syh, syw;
   int Hp, Wp, C, Co;
   long long M;  // B * Hp * Wp tiles
   bool relu;
+  bool bias_bf16;
 };
 
 // Output transform coefficient of product k = 4i + j for output phase
@@ -75,6 +84,11 @@ __host__ __device__ constexpr float at_coef(int p, int i) {
 }
 __host__ __device__ constexpr float out_coef(int o, int k) {
   return at_coef(o >> 1, k >> 2) * at_coef(o & 1, k & 3);
+}
+
+__device__ __forceinline__ float bias_at(const WinoArgs& a, int n) {
+  return a.bias_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.bias)[n])
+                     : static_cast<const float*>(a.bias)[n];
 }
 
 // Where tile m's taps lie: tile (b, r, c), its element offset in a phase
@@ -246,7 +260,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     __syncthreads();
 
-    // ---- the 16 products of the chunk, each into the output phases.
+    // ---- the 16 products of the chunk, each into the output phases
+    // whose coefficient out_coef(o, k) is +1 or -1.
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
       uint32_t af[4];
@@ -268,14 +283,13 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
-        float m[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_bf16(m, af, bf[nt][0], bf[nt][1]);
+        const uint32_t n0 = bf[nt][0] ^ 0x80008000u, n1 = bf[nt][1] ^ 0x80008000u;
 #pragma unroll
         for (int o = 0; o < 4; ++o) {
           const float cf = out_coef(o, k);
           if (cf == 0.f) continue;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[o][nt][e] += cf * m[e];
+          if (cf > 0.f) mma_bf16(acc[o][nt], af, bf[nt][0], bf[nt][1]);
+          else mma_bf16(acc[o][nt], af, n0, n1);
         }
       }
     }
@@ -294,7 +308,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int n = n0 + wn * 32 + nt * 8 + 2 * q;
       if (n >= a.Co) continue;
       const bool two = n + 1 < a.Co;
-      const float b0 = a.bias[n], b1 = two ? a.bias[n + 1] : 0.f;
+      const float b0 = bias_at(a, n), b1 = two ? bias_at(a, n + 1) : 0.f;
 #pragma unroll
       for (int o = 0; o < 4; ++o) {
         float v0 = acc[o][nt][2 * hh] + b0, v1 = acc[o][nt][2 * hh + 1] + b1;
@@ -441,7 +455,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + 4 * tn + j;
       if (n >= a.Co) continue;
-      const float bn = a.bias[n];
+      const float bn = static_cast<const float*>(a.bias)[n];
 #pragma unroll
       for (int o = 0; o < 4; ++o) {
         float v = acc[o][i][j] + bn;
@@ -463,7 +477,8 @@ bool aligned(const void* p, int bytes) {
 // Phases x (B, Hp, Wp, C), residual r and output y (B, Hp, Wp, Co), four
 // pointers each with the strides (elements) they share over batch, row and
 // column; channels contiguous. r00 == nullptr: no residual. u (16, C, Co)
-// contiguous in `dtype`, bias (Co) fp32. y must not overlap x or r.
+// contiguous in `dtype`; bias (Co) fp32, or bf16 (bias_bf16 = 1, bf16 path
+// only). y must not overlap x or r.
 extern "C" int sde_winograd(const void* x00, const void* x01, const void* x10,
                             const void* x11, long long sxb, long long sxh,
                             long long sxw, const void* r00, const void* r01,
@@ -472,7 +487,7 @@ extern "C" int sde_winograd(const void* x00, const void* x01, const void* x10,
                             const void* bias, void* y00, void* y01, void* y10,
                             void* y11, long long syb, long long syh, long long syw,
                             int B, int Hp, int Wp, int C, int Co, int relu,
-                            int dtype, int device, void* stream) {
+                            int bias_bf16, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B < 1 || Hp < 1 || Wp < 1 || C < 1 || Co < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -482,7 +497,8 @@ extern "C" int sde_winograd(const void* x00, const void* x01, const void* x10,
   a.r[0] = r00; a.r[1] = r01; a.r[2] = r10; a.r[3] = r11;
   a.srb = srb; a.srh = srh; a.srw = srw;
   a.u = u;
-  a.bias = static_cast<const float*>(bias);
+  a.bias = bias;
+  a.bias_bf16 = bias_bf16 != 0;
   a.y[0] = y00; a.y[1] = y01; a.y[2] = y10; a.y[3] = y11;
   a.syb = syb; a.syh = syh; a.syw = syw;
   a.Hp = Hp; a.Wp = Wp; a.C = C; a.Co = Co;
@@ -493,6 +509,7 @@ extern "C" int sde_winograd(const void* x00, const void* x01, const void* x10,
   const dim3 grid(static_cast<unsigned>(mblocks), (Co + sde::kNT - 1) / sde::kNT);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == sde::kFloat32) {
+    if (a.bias_bf16) return static_cast<int>(cudaErrorInvalidValue);
     err = cudaFuncSetAttribute(sde::winograd_fp32_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, sde::kFp32Smem);
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -38,6 +38,21 @@ from scenedepthestimation_tpu_torch.ops.cuda import conv_block
 from scenedepthestimation_tpu_torch.ops.upsample import upsample2x, upsample_concat
 
 
+def _keep(kept: Optional[tuple], make, *weights: torch.Tensor) -> tuple:
+    """(detached weights, their versions, ``make(*detached weights)``):
+    ``kept`` itself while no weight's storage or ``_version`` has changed
+    since it was made (an inference tensor has no version counter: its
+    storage alone), else made anew. The kept detached views hold the old
+    storages, so a new one cannot take their addresses."""
+    versions = tuple(None if w.is_inference() else w._version for w in weights)
+    if kept is None or kept[1] != versions or any(
+        k.data_ptr() != w.data_ptr() for k, w in zip(kept[0], weights)
+    ):
+        detached = tuple(w.detach() for w in weights)
+        kept = (detached, versions, make(*detached))
+    return kept
+
+
 class Conv3x3(nn.Module):
     """Border-padded 3x3 conv + activation through the conv3x3 kernel.
 
@@ -60,23 +75,13 @@ class Conv3x3(nn.Module):
         self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))
         self.bias = nn.Parameter(torch.zeros(cout))
         nn.init.normal_(self.weight, std=1.0 / math.sqrt(9 * cin))
-        self._slab: Optional[torch.Tensor] = None
-        self._slab_of: Optional[tuple] = None
+        self._kept_slab: Optional[tuple] = None
 
     def slab(self) -> torch.Tensor:
-        """``conv_block.arrange_slab`` of the weight, made once and kept;
-        made again when the weight's storage or ``_version`` changes (an
-        inference tensor has no version counter: its storage alone). The
-        kept detached view holds the old storage, so a new one cannot take
-        its address."""
-        w = self.weight
-        version = None if w.is_inference() else w._version
-        if self._slab_of is None or (
-            self._slab_of[0].data_ptr(), self._slab_of[1]
-        ) != (w.data_ptr(), version):
-            self._slab = conv_block.arrange_slab(w.detach())
-            self._slab_of = (w.detach(), version)
-        return self._slab
+        """``conv_block.arrange_slab`` of the weight, made once and kept
+        until the weight changes (:func:`_keep`)."""
+        self._kept_slab = _keep(self._kept_slab, conv_block.arrange_slab, self.weight)
+        return self._kept_slab[2]
 
     def forward(self, x: torch.Tensor, border: str = "reflect") -> torch.Tensor:
         slab = self.slab() if conv_block.uses_slab(x, self.weight.shape[0]) else None
@@ -114,7 +119,8 @@ class DepthDecoder(nn.Module):
     Holds a head for each scale in ``scales``; ``forward`` computes the
     heads it is asked for and returns ``{scale: (B, H/2^s, W/2^s, 1)}``.
     ``border_mode`` is ``"exact"`` (reflect borders) or ``"fast"`` (see the
-    module docstring); ``Predictor`` sets it.
+    module docstring); ``Predictor`` sets it. For the fused tail's bf16
+    kernel it keeps level 0's weight slab (:meth:`tail_slab`).
     """
 
     def __init__(
@@ -135,6 +141,16 @@ class DepthDecoder(nn.Module):
             setattr(self, f"upconv_{i}_1", ConvBlock(cin, dec_channels[i]))
         for s in self.scales:
             setattr(self, f"dispconv_{s}", DispHead(dec_channels[s]))
+        self._kept_tail: Optional[tuple] = None
+
+    def tail_slab(self) -> torch.Tensor:
+        """``fused_tail.arrange_tail_weights`` of level 0's two convs, made
+        once and kept until either weight changes (:func:`_keep`)."""
+        self._kept_tail = _keep(
+            self._kept_tail, fused_tail.arrange_tail_weights,
+            self.upconv_0_0.conv.weight, self.upconv_0_1.conv.weight,
+        )
+        return self._kept_tail[2]
 
     def forward(
         self,
@@ -157,7 +173,11 @@ class DepthDecoder(nn.Module):
                 and (not fast or fused_tail.jax_tiles_rows(x.shape[1] // 2))
             ):
                 u00, u01 = self.upconv_0_0.conv, self.upconv_0_1.conv
-                x = fused_tail.fused_tail(x, u00.weight, u00.bias, u01.weight, u01.bias)
+                kernel_slab = x.device.type == "cuda" and x.dtype == torch.bfloat16
+                x = fused_tail.fused_tail(
+                    x, u00.weight, u00.bias, u01.weight, u01.bias,
+                    wslab=self.tail_slab() if kernel_slab else None,
+                )
                 head_border = "reflect"
             else:
                 x = getattr(self, f"upconv_{i}_0")(x, border)

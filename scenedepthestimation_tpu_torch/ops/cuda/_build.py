@@ -66,12 +66,15 @@ _SIGNATURES = {
     "sde_correlation_gram": (_P, _P, _P) + (_I,) * 5 + (_P,),
     # cost, out, n, D, dtype, scale, depth, fb, device, stream
     "sde_soft_argmin": (_P, _P, _L, _I, _I, _F, _I, _F, _I, _P),
-    # y1, w00, b00, w01, b01, y0, B, h, w, C1, C0, C0o, dtype, device, stream
-    "sde_fused_tail": (_P,) * 6 + (_I,) * 8 + (_P,),
+    # y1, w00, b00, w01, b01, wslab, y0, B, h, w, C1, C0, C0o, dtype, device,
+    # stream
+    "sde_fused_tail": (_P,) * 7 + (_I,) * 8 + (_P,),
+    # w00, w01, slab, C1, C0, C0o, device, stream
+    "sde_fused_tail_arrange": (_P,) * 3 + (_I,) * 4 + (_P,),
     # x00..x11, sxb, sxh, sxw, r00..r11, srb, srh, srw, u, bias, y00..y11,
-    # syb, syh, syw, B, Hp, Wp, C, Co, relu, dtype, device, stream
+    # syb, syh, syw, B, Hp, Wp, C, Co, relu, bias_bf16, dtype, device, stream
     "sde_winograd": (_P,) * 4 + (_L,) * 3 + (_P,) * 4 + (_L,) * 3 + (_P,) * 6
-    + (_L,) * 3 + (_I,) * 8 + (_P,),
+    + (_L,) * 3 + (_I,) * 9 + (_P,),
 }
 
 

@@ -10,10 +10,15 @@ fused_tail_pallas`` and ``fused_tail_v2.py::fused_tail_pallas_v2``, which
 compute the same function on packed TPU layouts. :func:`fused_tail`
 launches it for a CUDA tensor and takes :func:`fused_tail_plain` for a CPU
 tensor; there is no other route. Weights are in PyTorch's (Cout, Cin, 3, 3)
-layout, unpacked.
+layout, unpacked; the bf16 kernel reads both from one slab in the order
+its products read (:func:`arrange_tail_weights`), which the mono decoder
+makes once and keeps (``models/unet_decoder.DepthDecoder.tail_slab``); a
+call without one arranges it first.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -43,6 +48,51 @@ def _check(y1, w00, b00, w01, b01) -> None:
         raise ValueError(f"reflect border needs h, w >= 2, got {tuple(y1.shape)}")
 
 
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def tail_slab_shape(c1: int, c0: int, c0o: int) -> tuple:
+    """Elements of the weight slab, as a 1-D shape: W00 as (9, C0, C1) and
+    W01 as (9, C0o, C0), each channel count rounded up to 16."""
+    return (9 * _pad16(c0) * _pad16(c1) + 9 * _pad16(c0o) * _pad16(c0),)
+
+
+def arrange_tail_weights_plain(w00: torch.Tensor, w01: torch.Tensor) -> torch.Tensor:
+    """(C0, C1, 3, 3) and (C0o, C0, 3, 3) -> the slab, in their dtype: for
+    each weight, per tap ``t = ky * 3 + kx`` the (N, K) matrix ``m[t, n, k]
+    = w[n, k, ky, kx]`` (rows n of contiguous input channels k: the B
+    fragments of the products, row by row), zero past the channels; W00's
+    then W01's, flattened. Shape :func:`tail_slab_shape`."""
+    parts = []
+    for w in (w00, w01):
+        n, k = w.shape[:2]
+        m = w.new_zeros((9, _pad16(n), _pad16(k)))
+        m[:, :n, :k] = w.permute(2, 3, 0, 1).reshape(9, n, k)
+        parts.append(m.reshape(-1))
+    return torch.cat(parts)
+
+
+def arrange_tail_weights(w00: torch.Tensor, w01: torch.Tensor) -> torch.Tensor:
+    """The slab of contiguous bf16 CUDA weights in one launch of the arrange
+    kernel; :func:`arrange_tail_weights_plain` for CPU weights."""
+    if w00.device.type == "cpu":
+        return arrange_tail_weights_plain(w00, w01)
+    for t in (w00, w01):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.dim() != 4:
+            raise TypeError("the slab is made from contiguous bf16 (Cout, Cin, 3, 3) weights")
+    c0, c1 = w00.shape[:2]
+    c0o = w01.shape[0]
+    slab = torch.empty(tail_slab_shape(c1, c0, c0o), dtype=torch.bfloat16, device=w00.device)
+    err = _build.lib().sde_fused_tail_arrange(
+        w00.data_ptr(), w01.data_ptr(), slab.data_ptr(), c1, c0, c0o, w00.device.index,
+        _build.stream_of(w00),
+    )
+    _build.check(err, "fused_tail weights")
+    _build.LAUNCHES["fused_tail_weights"] += 1
+    return slab
+
+
 def fused_tail_plain(
     y1: torch.Tensor,
     w00: torch.Tensor,
@@ -68,6 +118,7 @@ def fused_tail(
     b00: torch.Tensor,
     w01: torch.Tensor,
     b01: torch.Tensor,
+    wslab: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The fused_tail kernel on a CUDA tensor, its plain version on a CPU one.
 
@@ -75,9 +126,13 @@ def fused_tail(
     contiguous, on y1's device and of y1's dtype (float32: the CUDA-core
     kernel; bfloat16: the tensor-core kernel), and the block's tiles must
     fit the card's shared memory (fp32: C0 up to 143; bf16, which stages
-    both weights whole: C1 up to 160 at C0 = C0o = 16, fewer for wider C0;
-    the default decoder's 32 -> 16 -> 16 takes 69 KB); anything else
-    raises.
+    both weights whole and a 16 x 32 z tile, or 8 x 32 where that does not
+    fit: C1 up to 160 at C0 = C0o = 16, fewer for wider C0; the default
+    decoder's 32 -> 16 -> 16 takes 151 KB); anything else raises. The bf16
+    kernel reads ``wslab`` (:func:`arrange_tail_weights`); without it, the
+    call arranges one first (one more launch). The fp32 kernel reads the
+    weights and takes no slab; the plain version reads the weights, so a
+    CPU call does not read ``wslab``.
     """
     if y1.device.type == "cpu":
         return fused_tail_plain(y1, w00, b00, w01, b01)
@@ -107,9 +162,22 @@ def fused_tail(
     y0 = torch.empty((b, 2 * h, 2 * w, c0o), dtype=y1.dtype, device=y1.device)
     if y0.numel() == 0:
         return y0
+    if y1.dtype == torch.float32:
+        if wslab is not None:
+            raise TypeError("the fp32 fused_tail kernel reads the weights, not a slab")
+    else:
+        if wslab is None:
+            wslab = arrange_tail_weights(w00, w01)
+        if (tuple(wslab.shape) != tail_slab_shape(c1, c0, c0o) or wslab.dtype != torch.bfloat16
+                or wslab.device != y1.device or not wslab.is_contiguous() or wslab.data_ptr() % 16):
+            raise ValueError(
+                f"wslab must be a contiguous, 16-byte aligned bf16 {tail_slab_shape(c1, c0, c0o)} "
+                f"on {y1.device}, got {wslab.dtype} {tuple(wslab.shape)} on {wslab.device}"
+            )
     err = lib.sde_fused_tail(
         y1.data_ptr(), w00.data_ptr(), b00.data_ptr(), w01.data_ptr(),
-        b01.data_ptr(), y0.data_ptr(), b, h, w, c1, c0, c0o,
+        b01.data_ptr(), None if wslab is None else wslab.data_ptr(), y0.data_ptr(),
+        b, h, w, c1, c0, c0o,
         _DTYPES[y1.dtype], y1.device.index, _build.stream_of(y1),
     )
     _build.check(err, "fused_tail")

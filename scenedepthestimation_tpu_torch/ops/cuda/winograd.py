@@ -137,8 +137,10 @@ def winograd_conv3x3_phases(
     phases are float32 (CUDA cores) or bfloat16 (tensor cores); the four
     tensors of each group (phases, residual, out) may be strided views, as
     ``space_to_phases`` gives, but share their strides and have contiguous
-    channels. ``u`` is cast to the phases' dtype and ``bias`` to fp32 on
-    the way in. ``out`` must not overlap the inputs. Anything else raises.
+    channels. ``u`` is read as it is when it is contiguous in the phases'
+    dtype (as ``ops/winograd.kept_u_slab`` keeps it), else cast on the way
+    in; ``bias`` is read as it is when fp32 or (bf16 path) bf16, else cast
+    to fp32. ``out`` must not overlap the inputs. Anything else raises.
     """
     p0 = phases[0]
     if p0.device.type == "cpu":
@@ -163,7 +165,8 @@ def winograd_conv3x3_phases(
     b, hp, wp, c = p0.shape
     co = u.shape[2]
     uk = u.to(p0.dtype).contiguous()
-    bk = bias.float().contiguous()
+    bias_bf16 = p0.dtype == torch.bfloat16 and bias.dtype == torch.bfloat16
+    bk = bias.contiguous() if bias_bf16 else bias.float().contiguous()
     if out is None:
         out = tuple(torch.empty((b, hp, wp, co), dtype=p0.dtype, device=p0.device) for _ in range(4))
     if out[0].numel() == 0:
@@ -176,7 +179,7 @@ def winograd_conv3x3_phases(
         rp, sr = tuple(t.data_ptr() for t in residual_phases), _strides(residual_phases, "residual_phases")
     err = _build.lib().sde_winograd(
         *(t.data_ptr() for t in phases), *sx, *rp, *sr, uk.data_ptr(), bk.data_ptr(),
-        *(t.data_ptr() for t in out), *sy, b, hp, wp, c, co, int(relu),
+        *(t.data_ptr() for t in out), *sy, b, hp, wp, c, co, int(relu), int(bias_bf16),
         _DTYPES[p0.dtype], p0.device.index, _build.stream_of(p0),
     )
     _build.check(err, "winograd")

@@ -5,18 +5,32 @@ its dispatch in ``collapsed_mono_decoder``.
 With the switch on, the mono decoder runs ``upconv_0_0`` -> nearest 2x ->
 ``upconv_0_1`` as one launch of the fused_tail kernel
 (:func:`fused_tail`, from ``ops/cuda/fused_tail.py``, with its plain
-version :func:`fused_tail_plain`). The JAX package's values are kept:
-None and False leave it off, True and "v2" (its two TPU kernels) both
-select the one Hopper kernel. The default is off, as in the JAX package.
+version :func:`fused_tail_plain`; the bf16 kernel reads its weights as a
+slab, :func:`arrange_tail_weights`, which the decoder keeps). The JAX
+package's values are kept: None and False leave it off, True and "v2" (its
+two TPU kernels) both select the one Hopper kernel. The default is off, as in the JAX package.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Union
 
-from scenedepthestimation_tpu_torch.ops.cuda.fused_tail import fused_tail, fused_tail_plain
+from scenedepthestimation_tpu_torch.ops.cuda.fused_tail import (
+    arrange_tail_weights,
+    arrange_tail_weights_plain,
+    fused_tail,
+    fused_tail_plain,
+)
 
-__all__ = ["enabled", "fused_tail", "fused_tail_plain", "jax_tiles_rows", "set_use_fused_tail"]
+__all__ = [
+    "arrange_tail_weights",
+    "arrange_tail_weights_plain",
+    "enabled",
+    "fused_tail",
+    "fused_tail_plain",
+    "jax_tiles_rows",
+    "set_use_fused_tail",
+]
 
 _USE_FUSED_TAIL: Optional[Union[bool, str]] = None
 

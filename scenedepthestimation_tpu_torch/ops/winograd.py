@@ -9,6 +9,11 @@ shortcut) and an optional ReLU fused. The kernel is
 ``ops/cuda/winograd.winograd_conv3x3_phases`` (``csrc/winograd.cu`` on
 CUDA tensors, its plain version on CPU tensors).
 
+The kernel reads the weights as U, (16, C, Co) in the phases' dtype.
+:func:`kept_u_slab` makes it once per weight and keeps it until the weight
+changes; pass it as ``winograd_conv3x3(..., u_slab=...)``. Without one the
+call transforms the weight itself.
+
 As in the JAX package, nothing routes the model through it by default: the
 folded encoder (``models/folded.py``) runs its convs in cuDNN.
 """
@@ -19,6 +24,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from scenedepthestimation_tpu_torch.ops.cuda import winograd as _kernel
 from scenedepthestimation_tpu_torch.ops.cuda.winograd import (
@@ -28,6 +34,7 @@ from scenedepthestimation_tpu_torch.ops.cuda.winograd import (
 
 __all__ = [
     "conv3x3_reference",
+    "kept_u_slab",
     "phases_to_space",
     "space_to_phases",
     "transform_weights",
@@ -52,6 +59,26 @@ def transform_weights(weight: torch.Tensor) -> torch.Tensor:
     g = torch.tensor(_G, dtype=torch.float32, device=weight.device)
     u = torch.einsum("ia,jb,ocab->ijco", g, g, weight.float())
     return u.reshape((16,) + tuple(u.shape[2:]))
+
+
+# weight -> (a detached view of the weight U was made from, its _version, U).
+_KEPT: WeakIdKeyDictionary = WeakIdKeyDictionary()
+
+
+def kept_u_slab(weight: torch.Tensor) -> torch.Tensor:
+    """``transform_weights(weight)`` in the weight's dtype, contiguous: the
+    U the kernel reads when the phases share that dtype. Made once per
+    weight and kept; made again when the weight's storage or ``_version``
+    changes (an inference tensor has no version counter: its storage
+    alone). The kept detached view holds the old storage, so a new one
+    cannot take its address."""
+    version = None if weight.is_inference() else weight._version
+    kept = _KEPT.get(weight)
+    if kept is None or (kept[0].data_ptr(), kept[1]) != (weight.data_ptr(), version):
+        w = weight.detach()
+        kept = (w, version, transform_weights(w).to(w.dtype).contiguous())
+        _KEPT[weight] = kept
+    return kept[2]
 
 
 def space_to_phases(x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -79,12 +106,14 @@ def winograd_conv3x3(
     bias: Optional[torch.Tensor] = None,
     residual: Optional[torch.Tensor] = None,
     relu: bool = True,
+    u_slab: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """NHWC wrapper: x (B, H, W, C), weight (Co, C, 3, 3) -> (B, H, W, Co)
     of ``relu(conv3x3(x) + bias + residual)`` through the kernel.
 
     The phases are views of x and of the output, which the kernel writes
-    in place, so neither a split nor an interleave moves data.
+    in place, so neither a split nor an interleave moves data. ``u_slab``
+    (:func:`kept_u_slab` of the weight) is read in place of the weight.
     """
     co = weight.shape[0]
     if bias is None:
@@ -92,7 +121,7 @@ def winograd_conv3x3(
     y = torch.empty(tuple(x.shape[:3]) + (co,), dtype=x.dtype, device=x.device)
     _kernel.winograd_conv3x3_phases(
         space_to_phases(x),
-        transform_weights(weight),
+        transform_weights(weight) if u_slab is None else u_slab,
         bias,
         residual_phases=None if residual is None else space_to_phases(residual),
         relu=relu,

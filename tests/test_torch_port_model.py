@@ -345,3 +345,37 @@ def test_folded_encoder_on_winograd_equals_cudnn_path(monkeypatch):
     assert len(calls) == 13 and sum(calls) == 8  # every block's conv2 adds its shortcut
     for lvl, (g, w) in enumerate(zip(got, want)):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, rtol=0, err_msg=f"level {lvl}")
+
+
+def test_folded_encoder_on_winograd_keeps_each_u_slab(monkeypatch):
+    """The folded ResNet-18 on winograd_conv3x3 with each weight's kept U
+    (kept_u_slab), as chip_smoke.py routes it on the card:
+    equal to the F.conv2d path (fp32 atol 1e-5) in both of two forwards,
+    the 13 weights transformed in the first forward and none in the second."""
+    from scenedepthestimation_tpu_torch.models import folded
+    from scenedepthestimation_tpu_torch.ops import winograd
+
+    variables, enc, x = _folded_setup(18, seed=3, hw=(64, 128))  # even at /32
+    fenc = folded.FoldedEncoder.from_encoder(enc).eval()
+    with torch.no_grad():
+        want = fenc(torch.from_numpy(x))
+    transformed = []
+    transform = winograd.transform_weights
+
+    def counting(w):
+        transformed.append(tuple(w.shape))
+        return transform(w)
+
+    def on_winograd(x, weight, bias, residual=None):
+        nhwc = (lambda t: None if t is None else t.permute(0, 2, 3, 1))
+        return winograd.winograd_conv3x3(nhwc(x), weight, bias, nhwc(residual),
+                                         u_slab=winograd.kept_u_slab(weight)).permute(0, 3, 1, 2)
+
+    monkeypatch.setattr(winograd, "transform_weights", counting)
+    monkeypatch.setattr(folded, "conv3x3_bias_relu", on_winograd)
+    for forward in range(2):
+        with torch.no_grad():
+            got = fenc(torch.from_numpy(x))
+        assert len(transformed) == 13, f"forward {forward}: {len(transformed)} transforms"
+        for lvl, (g, w) in enumerate(zip(got, want)):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, rtol=0, err_msg=f"level {lvl}")

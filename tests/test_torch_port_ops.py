@@ -554,3 +554,152 @@ def test_conv3x3_module_keeps_its_slab_until_the_weight_changes():
     m.to(torch.bfloat16)
     third = m.slab()
     assert third.dtype == torch.bfloat16 and m.slab() is third
+
+
+def test_depth_decoder_keeps_its_tail_slab_until_the_weights_change():
+    """DepthDecoder.tail_slab() arranges level 0's two weights once and
+    returns the kept slab; an in-place change of either weight or a dtype
+    cast makes it arrange again. On the CPU, the fused tail's forward does
+    not make one (the plain version reads the weights)."""
+    from scenedepthestimation_tpu_torch.models.unet_decoder import DepthDecoder
+
+    dec = DepthDecoder(num_ch_enc=(8, 8, 8, 8, 8), dec_channels=(4, 4, 4, 4, 4)).eval()
+    u00, u01 = dec.upconv_0_0.conv.weight, dec.upconv_0_1.conv.weight
+    first = dec.tail_slab()
+    assert dec.tail_slab() is first
+    assert torch.equal(first, fused_tail.arrange_tail_weights_plain(u00.detach(), u01.detach()))
+    with torch.no_grad():
+        u01.add_(1.0)
+    second = dec.tail_slab()
+    assert second is not first and dec.tail_slab() is second
+    assert torch.equal(second, fused_tail.arrange_tail_weights_plain(u00.detach(), u01.detach()))
+    dec.to(torch.bfloat16)
+    third = dec.tail_slab()
+    assert third is not second and third.dtype == torch.bfloat16 and dec.tail_slab() is third
+    fresh = DepthDecoder(num_ch_enc=(8, 8, 8, 8, 8), dec_channels=(4, 4, 4, 4, 4)).eval()
+    feats = [torch.randn(1, 32 >> i, 64 >> i, 8) for i in range(1, 6)]
+    fused_tail.set_use_fused_tail(True)
+    try:
+        with torch.no_grad():
+            fresh(feats)
+    finally:
+        fused_tail.set_use_fused_tail(None)
+    assert fresh._kept_tail is None
+
+
+@pytest.mark.parametrize("c,co", [(5, 7), (3, 40), (20, 12), (33, 17), (16, 300)])
+def test_u_slab_layout_feeds_a_plain_implicit_gemm(c, co):
+    """The U the winograd kernel reads (kept_u_slab): (16, C, Co), contiguous,
+    in the weight's dtype. Read back per product k = 4i + j as a C x Co
+    matrix, it feeds a plain Winograd implicit GEMM written here in numpy
+    (V = B^T d B of each 4 x 4 window, M_k = V_k U_k, Y = A^T M A) to the
+    direct conv and to the plain version; fp32 atol 1e-5."""
+    from scenedepthestimation_tpu_torch.ops import winograd
+
+    x, g, bias, res = _wino_data(2, 6, 10, c, co, seed=c + co)
+    slab = winograd.kept_u_slab(_oihw(g))
+    assert tuple(slab.shape) == (16, c, co) and slab.is_contiguous() and slab.dtype == torch.float32
+    u = _np(slab).astype(np.float64)
+    bt = np.array([[1, 0, -1, 0], [0, 1, 1, 0], [0, -1, 1, 0], [0, 1, 0, -1]], np.float64)
+    at = np.array([[1, 1, 1, 0], [0, 1, -1, -1]], np.float64)
+    b, h, w, _ = x.shape
+    xp = np.pad(x.astype(np.float64), ((0, 0), (1, 1), (1, 1), (0, 0)))
+    d = np.stack([np.stack([xp[:, r:r + h:2, s:s + w:2] for s in range(4)]) for r in range(4)])
+    v = np.einsum("ia,jb,ab...->ij...", bt, bt, d)  # (4, 4, B, H/2, W/2, C)
+    m = np.stack([np.stack([v[i, j] @ u[4 * i + j] for j in range(4)]) for i in range(4)])
+    y = np.einsum("pi,qj,ij...->pq...", at, at, m)  # (2, 2, B, H/2, W/2, Co)
+    got = np.empty((b, h, w, co))
+    for p_ in range(2):
+        for q_ in range(2):
+            got[:, p_::2, q_::2] = y[p_, q_]
+    got = np.maximum(got + bias + res, 0.0)
+    direct = winograd.conv3x3_reference(torch.from_numpy(x), _oihw(g), torch.from_numpy(bias),
+                                        torch.from_numpy(res))
+    np.testing.assert_allclose(got, _np(direct), atol=1e-5, rtol=0)
+    plain = winograd.winograd_conv3x3(torch.from_numpy(x), _oihw(g), torch.from_numpy(bias),
+                                      torch.from_numpy(res), u_slab=slab)
+    np.testing.assert_allclose(got, _np(plain), atol=1e-5, rtol=0)
+
+
+def test_kept_u_slab_arranges_once_until_the_weight_changes(monkeypatch):
+    """kept_u_slab() transforms a weight once and returns the kept U; an
+    in-place change of the weight (its _version) or a new storage (a dtype
+    cast of its module) makes it transform again, into the new dtype."""
+    from scenedepthestimation_tpu_torch.ops import winograd
+
+    transformed = []
+    transform = winograd.transform_weights
+
+    def counting(w):
+        transformed.append(tuple(w.shape))
+        return transform(w)
+
+    monkeypatch.setattr(winograd, "transform_weights", counting)
+    conv = torch.nn.Conv2d(5, 7, 3, padding=1)
+    first = winograd.kept_u_slab(conv.weight)
+    assert winograd.kept_u_slab(conv.weight) is first and transformed == [(7, 5, 3, 3)]
+    torch.testing.assert_close(first, transform(conv.weight.detach()))
+    with torch.no_grad():
+        conv.weight.add_(1.0)
+    second = winograd.kept_u_slab(conv.weight)
+    assert second is not first and len(transformed) == 2
+    torch.testing.assert_close(second, transform(conv.weight.detach()))
+    conv.to(torch.bfloat16)
+    third = winograd.kept_u_slab(conv.weight)
+    assert third is not second and len(transformed) == 3 and winograd.kept_u_slab(conv.weight) is third
+    assert third.dtype == torch.bfloat16
+    torch.testing.assert_close(third, transform(conv.weight.detach()).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_res", [False, True])
+def test_winograd_conv3x3_with_u_slab_matches_jax(dtype, use_res):
+    """winograd_conv3x3(..., u_slab=kept_u_slab(w)) equals the call without
+    it, and the JAX winograd_conv3x3 (its kernel in interpret mode) on the
+    same input: fp32 atol 1e-5; bf16 one bf16 spacing of each element."""
+    from scenedepthestimation_tpu.ops.pallas import winograd as jax_wino
+    from scenedepthestimation_tpu_torch.ops import winograd
+
+    x, g, bias, res = _wino_data(2, 6, 10, 5, 7, seed=11)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    w = _oihw(g)
+    r = torch.from_numpy(res).to(tdt) if use_res else None
+    got = winograd.winograd_conv3x3(torch.from_numpy(x).to(tdt), w, torch.from_numpy(bias), r,
+                                    u_slab=winograd.kept_u_slab(w))
+    plain = winograd.winograd_conv3x3(torch.from_numpy(x).to(tdt), w, torch.from_numpy(bias), r)
+    assert got.dtype == tdt and torch.equal(got, plain)
+    want = np.asarray(jax_wino.winograd_conv3x3(
+        jnp.asarray(x).astype(jdt), jnp.asarray(g), jnp.asarray(bias),
+        residual=jnp.asarray(res).astype(jdt) if use_res else None, interpret=True,
+    ).astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(got), want, atol=1e-5, rtol=0)
+    else:
+        spacing = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -120))) - 7)
+        assert (np.abs(_np(got.float()) - want) <= spacing).all()
+
+
+@pytest.mark.parametrize("c1,c0,c0o", [(12, 5, 6), (32, 16, 16), (40, 17, 19)])
+def test_tail_slab_layout_feeds_the_plain_tail(c1, c0, c0o):
+    """The bf16 fused tail's weight slab: W00 as (9, C0, C1) then W01 as
+    (9, C0o, C0), channel counts rounded up to 16, rows n of contiguous
+    input channels k (the B fragments' rows), zero outside the weights.
+    Read back per tap as an (N, K) matrix, it runs fused_tail_plain to the
+    same output as the weights themselves (exactly, fp32)."""
+    y1, k00, b00, k01, b01 = _tail_inputs(np.random.default_rng(c1), 2, 4, 5, c1, c0, c0o)
+    args = _torch_tail_args(y1, k00, b00, k01, b01)
+    w00, w01 = args[1], args[3]
+    slab = fused_tail.arrange_tail_weights_plain(w00, w01)
+    p1, p0, p0o = (-(-n // 16) * 16 for n in (c1, c0, c0o))
+    assert tuple(slab.shape) == (9 * p0 * p1 + 9 * p0o * p0,)
+    m00 = slab[: 9 * p0 * p1].reshape(9, p0, p1)
+    m01 = slab[9 * p0 * p1:].reshape(9, p0o, p0)
+    assert not m00[:, c0:].any() and not m00[:, :, c1:].any()
+    assert not m01[:, c0o:].any() and not m01[:, :, c0:].any()
+    for tap in range(9):
+        torch.testing.assert_close(m00[tap, :c0, :c1], w00[:, :, tap // 3, tap % 3], rtol=0, atol=0)
+        torch.testing.assert_close(m01[tap, :c0o, :c0], w01[:, :, tap // 3, tap % 3], rtol=0, atol=0)
+    read00 = m00[:, :c0, :c1].reshape(3, 3, c0, c1).permute(2, 3, 0, 1)
+    read01 = m01[:, :c0o, :c0].reshape(3, 3, c0o, c0).permute(2, 3, 0, 1)
+    want = fused_tail.fused_tail_plain(*args)
+    assert torch.equal(fused_tail.fused_tail_plain(args[0], read00, args[2], read01, args[4]), want)
