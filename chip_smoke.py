@@ -11,26 +11,42 @@ Phases, one line each (more for the per-shape kernel checks):
   1. device: name and power limit from nvidia-smi, the TF32 flags;
   2. build: nvcc time (one nvcc per source, in parallel) and the library;
   3. kernels: conv3x3 at the 11 decoder shapes of mono_kitti_192x640_fp32
-     in fp32 and bf16 (the bf16 calls with their weight slab made
-     beforehand) and at off-path shapes in both (the zero border, 1-pixel H
-     and W under every border, Cin 3, 20 and 96, Cout 1, 12, 32 and 256,
-     odd W, inputs smaller than one tile, which split their channels),
+     in fp32 and bf16 (the calls with their weight slab made beforehand)
+     and at off-path shapes in both (the zero border, 1-pixel H and W
+     under every border, Cin 3, 20 and 96, Cout 1, 12, 32 and 256, odd W,
+     inputs smaller than one tile, which split their channels),
      upsample_concat at its 4 shapes, each against its plain version on
      the card, with both times (CUDA events, median of 30 runs, L2 warm as
-     in the decoder); ptxas's lines for the conv3x3 kernels (the bf16
-     kernel's held to its registers and spills before its wgmma helpers
-     moved to common.cuh), and the tensor-core (HGMMA) instructions in its
-     bf16 kernel's SASS;
+     in the decoder); at the fp32 shapes also the device time of a call
+     (CUDA events queued behind a spin kernel, so the launch from Python
+     lies outside them; the card's own launch latency lies inside), the
+     kernel time and launches (torch.profiler: one a call), cuDNN's conv
+     with bias, the
+     bound and the share of it; two split fp32 calls in a row equal bit for
+     bit, and a split call that grows the kept workspace; ptxas's lines for
+     the conv3x3 kernels (the bf16 kernel's held to its registers and
+     spills before its wgmma helpers moved to common.cuh, every fp32
+     instantiation to 0 bytes of spill stores), and the tensor-core (HGMMA)
+     instructions in its bf16 kernel's SASS; the fp32 calls' device times
+     are taken after phase 4 (lines "[3 conv3x3 fp32 device]"), since a
+     profiler session can slow later host launches and phase 4 times
+     host-bound b1 frames;
   4. end to end: load_weights(None, seed 0) + predict_mono on 375x1242
      frames, plain and with post_process: launch counts, shapes, finite
-     values, agreement with the CPU run of the same weights, and ms/frame
-     of the kernel path and of the all-plain path on the card;
+     values, agreement with the CPU run of the same weights, ms/frame of
+     the kernel path (median, p90 and mean over 100 frames, twice; before
+     any profiler session of the process) and of the all-plain path on the
+     card, and a profile of mono_forward (kernel
+     launches a forward, 11 of them conv3x3 kernels, none conv3x3_reduce;
+     device time; busy share);
   5. serving: 4 PNG frames through serve.serve_requests (depth=3);
   6. stereo kernels: correlation at stereo_256x512_b4's (4, 64, 128, 64)
      D=48 in fp32 and bf16 plus off-path shapes, soft_argmin at its
-     (4, 64, 128, 48) x4 plus other D, a temperature and the depth
-     epilogue, upsample_concat at the aggregation's 3 joins; each against
-     its plain version, with both times;
+     (4, 64, 128, 48) x4 (with its device time and bound) plus other D
+     (1, 7, 12, 24, 200, 512), a bf16 cost, costs spread over +-1e3, a
+     temperature and the depth epilogue, upsample_concat at the
+     aggregation's 3 joins; each against its plain version, with both
+     times;
   7. stereo end to end: load_weights(None, "stereo_256x512_b4", seed 0) +
      predict_stereo on a batch of 4 uint8 375x1242 pairs: launch counts,
      shapes, finite values, agreement with the CPU run of the same
@@ -42,7 +58,8 @@ Phases, one line each (more for the per-shape kernel checks):
      each against its plain version, timed in turns with its plain version
      and with the correlation kernel on the same bf16 inputs; its ptxas
      line; upsample_concat at config 5's three bf16 joins and soft_argmin
-     at its (16, 96, 288, 48) x4, against their plain versions;
+     at its (16, 96, 288, 48) x4 (with its device time and bound), against
+     their plain versions;
  10. bf16 stereo end to end: load_weights(None, config 5, seed 0) +
      predict_stereo on 16 uint8 375x1242 pairs on one card: launch counts
      (1 correlation_gram, no correlation), device ms per forward (CUDA
@@ -111,6 +128,17 @@ call's time) and, last, the ok line.
 Fails (non-zero exit, no ok line) when CUDA is absent, the package is
 not beside this script, a kernel does not build, launch or agree, or any
 check fails. Nothing is caught.
+
+    python3 chip_smoke.py --measure [ROOT] [FRAMES]
+
+times the package under ROOT (default: beside this script), so that a
+change and its parent (a ``git archive`` of it) are measured by the same
+code in turns in one session: mono_kitti_192x640_fp32's b1 ms/frame over
+FRAMES (default 200) synced predict_mono calls (median, p90, mean; before
+any profiler session of the process), then conv3x3 at its 11 fp32 shapes
+(the kernel against its plain version, the call time, the device time by
+queued events and the launches of a call, as phase 3 takes them); one
+JSON line.
 """
 
 from __future__ import annotations
@@ -341,13 +369,23 @@ CORR_MAIN = (4, 64, 128, 64, 48)
 # Ragged W tile, D > W, the c128 preset's C = 128 at W = 288, odd B*H.
 CORR_EXTRA = [(2, 3, 37, 24, 12), (1, 2, 8, 16, 12), (1, 2, 288, 128, 48), (1, 3, 70, 64, 48)]
 SOFT_ARGMIN_MAIN = ((4, 64, 128, 48), 4.0)
-# (shape, scale, temperature, epilogue): the d96 preset's D = 24, D = 12,
-# a temperature of 0.5, the depth epilogue at KITTI's f*B.
+# (shape, scale, temperature, epilogue, cost dtype, cost spread): the d96
+# preset's D = 24, D = 12, a temperature of 0.5, the depth epilogue at
+# KITTI's f*B; D = 1 and 7 (rows off 16 bytes: the looped path, in bf16
+# too), D = 200 (16 lanes a pixel) and 512 (32); costs spread over +-1e3,
+# where exp underflows without the max subtracted.
 SOFT_ARGMIN_EXTRA = [
-    ((2, 96, 288, 24), 4.0, 1.0, "none"),
-    ((1, 3, 37, 12), 1.0, 1.0, "none"),
-    ((4, 64, 128, 48), 4.0, 0.5, "none"),
-    ((4, 64, 128, 48), 4.0, 1.0, "depth"),
+    ((2, 96, 288, 24), 4.0, 1.0, "none", torch.float32, 2.0),
+    ((1, 3, 37, 12), 1.0, 1.0, "none", torch.float32, 2.0),
+    ((4, 64, 128, 48), 4.0, 0.5, "none", torch.float32, 2.0),
+    ((4, 64, 128, 48), 4.0, 1.0, "depth", torch.float32, 2.0),
+    ((2, 9, 17, 1), 4.0, 1.0, "none", torch.float32, 2.0),
+    ((2, 9, 17, 7), 4.0, 1.0, "none", torch.float32, 2.0),
+    ((2, 9, 17, 7), 4.0, 1.0, "none", torch.bfloat16, 2.0),
+    ((1, 8, 33, 200), 4.0, 1.0, "none", torch.float32, 2.0),
+    ((3, 5, 7, 512), 4.0, 1.0, "none", torch.float32, 2.0),
+    ((4, 64, 128, 48), 4.0, 1.0, "none", torch.float32, 1e3),
+    ((1, 8, 33, 200), 4.0, 1.0, "none", torch.float32, 1e3),
 ]
 FB = 721.5377 * 0.54
 # soft_argmin's operations per cost element: subtract the max, exp, and
@@ -400,13 +438,19 @@ def sass_counts(_build, kernel: str, op: str) -> dict:
 CONV_TC_PTXAS = [(128, 0), (128, 0), (128, 0), (120, 0), (128, 44), (128, 12), (110, 0), (98, 0)] * 2
 
 
+def _workspace_elems(conv_block) -> int:
+    """Elements of the fp32 workspace the conv3x3 wrapper keeps for this
+    device and stream (0 before any split call)."""
+    key = (0, conv_block._build.stream_of(torch.empty(0, device="cuda")))
+    store = conv_block._SCRATCH.get(key, [None, None])
+    return 0 if store[0] is None else store[0].numel()
+
+
 def phase_kernels(conv_block, upcat) -> dict:
     rng = np.random.default_rng(0)
-    lib = conv_block._build.lib()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     with open(os.path.join(os.path.dirname(conv_block._build.library_path()), "nvcc.log")) as f:
         text = f.read()
-    for kernel in ("conv3x3_tc_kernel", "conv3x3_head_kernel", "conv3x3_kernel"):
+    for kernel in ("conv3x3_tc_kernel", "conv3x3_head_kernel", "conv3x3_f32_kernel"):
         print(f"[3 conv3x3 ptxas] {kernel}: " + "; ".join(
             f"{a} {r} registers, {sp} bytes of spill stores" for a, r, sp in ptxas_lines(text, kernel)))
     tc_ptxas = [(r, sp) for _, r, sp in ptxas_lines(text, "conv3x3_tc_kernel")]
@@ -414,6 +458,13 @@ def phase_kernels(conv_block, upcat) -> dict:
           f"conv3x3_tc_kernel ptxas lines {tc_ptxas} differ from {CONV_TC_PTXAS}")
     print("[3 conv3x3 ptxas] conv3x3_tc_kernel: registers and spill stores of all 16 "
           "instantiations as before the wgmma helpers moved to common.cuh")
+    # Every fp32 instantiation: the body's four tiles and the head's two
+    # (mangled template arguments "Iff": fp32 in, fp32 out).
+    f32 = ptxas_lines(text, "conv3x3_f32_kernel") + [
+        line for line in ptxas_lines(text, "conv3x3_head_kernel") if line[0].startswith("Iff")]
+    check(len(f32) == 6 and all(sp == 0 for _, _, sp in f32),
+          f"fp32 conv3x3 instantiations with spill stores (or missing): {f32}")
+    print(f"[3 conv3x3 ptxas] fp32: {len(f32)} instantiations, 0 bytes of spill stores each")
     # The bf16 path's products are tensor-core instructions in the SASS.
     hgmma = sass_counts(conv_block._build, "conv3x3_tc_kernel", "HGMMA")
     check(len(hgmma) == 16 and min(hgmma.values()) > 0,
@@ -422,20 +473,24 @@ def phase_kernels(conv_block, upcat) -> dict:
           f"{min(hgmma.values())}-{max(hgmma.values())} HGMMA instructions each")
     res = {"conv3x3": {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0},
            "upsample_concat": {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}}
+    f32_calls = []  # (shape, args, slab, bound ms): timed by phase_conv_device
+    grown = []  # (shape, workspace elements before, after) where a call grew it
     for dtype in (torch.float32, torch.bfloat16):
         dt = "fp32" if dtype == torch.float32 else "bf16"
         for name, h, w, cin, cout, act, out_dtype in CONV_SHAPES:
+            before = _workspace_elems(conv_block)
             args, err, tol, ok = _conv_case(
                 conv_block, rng, (1, h, w, cin, cout), act, "reflect", dtype, out_dtype)
+            if 0 < before < _workspace_elems(conv_block) and dtype == torch.float32:
+                grown.append((name, before, _workspace_elems(conv_block)))
             x, wt = args[:2]
             slab = conv_block.arrange_slab(wt) if conv_block.uses_slab(x, cout) else None
             ms = time_ms(lambda: conv_block.conv3x3(*args, slab=slab))
             plain_ms = time_ms(lambda: conv_block.conv3x3_plain(*args))
-            splits = lib.sde_conv3x3_splits(1, h, w, cin, cout, conv_block._DTYPES[dtype], sms)
-            print(f"[3 conv3x3 {dt}] {name} {h}x{w} {cin}->{cout} {act} "
-                  f"(splits {splits}): max|err| {err:.3g} ({tol}) kernel "
-                  f"{ms:.4f} ms plain {plain_ms:.4f} ms")
-            check(ok, f"conv3x3 {dt} {name} disagrees with its plain version")
+            splits = conv_block.split_plan(1, h, w, cin, cout, dtype, 0)[0]
+            line = (f"[3 conv3x3 {dt}] {name} {h}x{w} {cin}->{cout} {act} "
+                    f"(splits {splits}): max|err| {err:.3g} ({tol}) kernel "
+                    f"{ms:.4f} ms plain {plain_ms:.4f} ms")
             if dtype == torch.float32:
                 r = res["conv3x3"]
                 r["err"] = max(r["err"], err)
@@ -443,12 +498,42 @@ def phase_kernels(conv_block, upcat) -> dict:
                 r["plain_ms"] += plain_ms
                 x, wt, bias = args[:3]
                 out_bytes = h * w * cout * 4  # fp32 out, the head's too
+                one = {}
+                add_bound(one, nbytes(x, wt, bias) + out_bytes, 2 * 9 * h * w * cin * cout, "fp32")
                 add_bound(r, nbytes(x, wt, bias) + out_bytes, 2 * 9 * h * w * cin * cout, "fp32")
-                r["library_ms"] += _conv_library_ms(x, wt, bias)
+                lib_ms = _conv_library_ms(x, wt, bias)
+                r["library_ms"] += lib_ms
+                line += (f" | cuDNN conv + bias {lib_ms:.4f} ms, bound {one['bound_ms']:.5f} ms "
+                         f"({max(one['bound_parts'], key=one['bound_parts'].get)})")
+                f32_calls.append((name, args, slab, one["bound_ms"]))
+            print(line)
+            check(ok, f"conv3x3 {dt} {name} disagrees with its plain version")
+        if dtype == torch.float32:
+            r = res["conv3x3"]
+            r["f32_calls"] = f32_calls
+            print(f"[3 conv3x3 fp32] the {len(CONV_SHAPES)} shapes: kernel {r['ms']:.4f} ms by "
+                  f"call; plain {r['plain_ms']:.4f} ms; cuDNN conv + bias "
+                  f"{r['library_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms")
+            # Two split calls in a row give the same bits: the tile counters
+            # are back at 0 after each.
+            name, h, w, cin, cout, act, out_dtype = CONV_SHAPES[0]
+            args, _, _, _ = _conv_case(
+                conv_block, rng, (1, h, w, cin, cout), act, "reflect", dtype, out_dtype)
+            slab = conv_block.arrange_slab(args[1])
+            first = conv_block.conv3x3(*args, slab=slab)
+            again = conv_block.conv3x3(*args, slab=slab)
+            check(torch.equal(first, again), f"two split calls at {name} differ")
+            print(f"[3 conv3x3 fp32] {name}: two calls in a row with "
+                  f"{conv_block.split_plan(1, h, w, cin, cout, dtype, 0)[0]} slices give the same bits")
+            # A split call that needs more slices than the kept workspace
+            # holds grows it (the store is made by the first split call).
+            check(bool(grown), "no fp32 call grew the kept workspace")
+            print("[3 conv3x3 fp32] calls that grew the kept workspace (elements before -> "
+                  "after): " + ", ".join(f"{n} {b_} -> {a_}" for n, b_, a_ in grown))
         for shape, act, border, out_dtype in EXTRA_CONV:
             _, err, tol, ok = _conv_case(
                 conv_block, rng, shape, act, border, dtype, out_dtype)
-            splits = lib.sde_conv3x3_splits(*shape, conv_block._DTYPES[dtype], sms)
+            splits = conv_block.split_plan(*shape, dtype, 0)[0]
             print(f"[3 conv3x3 {dt} extra] {shape} {act} {border} (splits "
                   f"{splits}): max|err| {err:.3g} ({tol})")
             check(ok, f"conv3x3 {dt} {shape} disagrees with its plain version")
@@ -473,6 +558,29 @@ def phase_kernels(conv_block, upcat) -> dict:
             print(f"[3 upsample_concat {dt} extra] {shape}: max|err| {err:.3g} (exact)")
             check(err == 0.0, f"upsample_concat {dt} {shape} is not exact")
     return res
+
+
+def phase_conv_device(conv_block, r: dict) -> None:
+    """Phase 3's fp32 calls again, for their device time (CUDA events queued
+    behind a spin kernel) and, over all of them in one torch.profiler
+    window, their launches: one a call. It runs after phase 4: a profiler
+    session can leave later launches slower on the host, and phase 4 times
+    host-bound b1 frames."""
+    calls = r.pop("f32_calls")
+    total = 0.0
+    for name, args, slab, bound in calls:
+        dev_ms = _queued_ms(lambda: conv_block.conv3x3(*args, slab=slab))
+        total += dev_ms
+        print(f"[3 conv3x3 fp32 device] {name}: {dev_ms:.4f} ms (the card's launch latency "
+              f"included), {100 * bound / dev_ms:.1f}% of the bound {bound:.5f} ms")
+    kernel_ms, launches = _kernel_time(
+        lambda: [conv_block.conv3x3(*args, slab=slab) for _, args, slab, _ in calls])
+    check(launches == len(calls), f"the {len(calls)} fp32 calls launched {launches} kernels")
+    r["device_ms"] = total
+    print(f"[3 conv3x3 fp32 device] the {len(calls)} shapes: {total:.4f} ms by events queued "
+          f"behind a spin kernel, {100 * r['bound_ms'] / total:.1f}% of the bound "
+          f"{r['bound_ms']:.4f} ms; by torch.profiler {kernel_ms:.4f} ms of kernel time in "
+          f"{launches} launches ({100 * r['bound_ms'] / kernel_ms:.1f}%)")
 
 
 def on_plain_path(_build, measure, *wrappers):
@@ -504,6 +612,22 @@ def _host_ms(predict, n: int) -> float:
 
 def _ms_per_frame(sdt, p, frame) -> float:
     return _host_ms(lambda: sdt.predict_mono(p, frame), 20)
+
+
+# b1 frames timed one by one on the host clock for the latency percentiles.
+LATENCY_FRAMES = 100
+
+
+def _frame_ms(sdt, p, frame, n: int = LATENCY_FRAMES) -> list:
+    """Host-clock ms of each of n predict_mono calls (each ends in a
+    device->host copy, so it is synced), after one to warm up."""
+    sdt.predict_mono(p, frame)
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        sdt.predict_mono(p, frame)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
 
 
 def phase_end_to_end(sdt, _build, conv_block, upcat) -> dict:
@@ -546,22 +670,42 @@ def phase_end_to_end(sdt, _build, conv_block, upcat) -> dict:
         check(s_err <= 1e-5, f"{tag} sigmoid disp vs CPU max|err| {s_err:.3g} > 1e-5")
         check(z_rel <= 1e-4, f"{tag} depth vs CPU max rel err {z_rel:.3g} > 1e-4")
 
-    # Kernel path vs all-plain path on the card, in turns (ABBA).
+    # Kernel path vs all-plain path on the card, in turns (ABBA); the kernel
+    # path frame by frame for its median and p90.
     def plain_ms() -> float:
         return on_plain_path(_build, lambda: _ms_per_frame(sdt, p, frame),
                              (conv_block, "conv3x3"), (upcat, "upsample_concat"))
 
-    k1 = _ms_per_frame(sdt, p, frame)
+    k1 = _frame_ms(sdt, p, frame)
     p1 = plain_ms()
     p2 = plain_ms()
-    k2 = _ms_per_frame(sdt, p, frame)
+    k2 = _frame_ms(sdt, p, frame)
+    lat = "; ".join(f"median {np.median(k):.3f}, p90 {np.percentile(k, 90):.3f}, mean "
+                    f"{np.mean(k):.3f}" for k in (k1, k2))
+
+    # One forward on the card's own input, by torch.profiler: its launches,
+    # the conv3x3 kernels among them (one a call: no conv3x3_reduce), and
+    # the device's busy share.
+    img = torch.from_numpy(frame[None]).cuda()
+    st = _profile_stats(lambda: p.mono_forward(img), n=5)
+    per_fwd = {name: k / 5 for name, (_, k) in st["by_name"].items()}
+    # Rounded: the profiler now and then drops an event.
+    conv_kernels = round(sum(k for name, k in per_fwd.items() if "conv3x3" in name))
+    check(conv_kernels == 11 and not any("conv3x3_reduce" in name for name in per_fwd),
+          f"config 1 forward: {conv_kernels} conv3x3 kernel launches (want 11, one a call): "
+          f"{ {n: k for n, k in per_fwd.items() if 'conv3x3' in n} }")
+    device_ms = sum(t for t, _ in st["by_name"].values()) / 5 / 1e3
+    conv_ms = sum(t for name, (t, _) in st["by_name"].items() if "conv3x3" in name) / 5 / 1e3
     print(f"[4 end to end] {CONFIG} b1 {SRC_HW[0]}x{SRC_HW[1]} uint8 -> depth: "
           f"launches {launches} (post_process {launches_pp}); "
           + "; ".join(f"{t} vs CPU: disp max|err| {d:.3g} = sigmoid {s:.3g} "
                       f"(atol 1e-5), depth max rel {z:.3g} (rtol 1e-4)"
                       for t, d, s, z in errs)
-          + f"; ms/frame kernel path {k1:.3f}, {k2:.3f} | plain path "
-          f"{p1:.3f}, {p2:.3f} (host clock, H2D + D2H included)")
+          + f"; ms/frame kernel path over {LATENCY_FRAMES} frames, twice: {lat} | plain path "
+          f"(mean of 20) {p1:.3f}, {p2:.3f} (host clock, H2D + D2H included); profiler of "
+          f"mono_forward: {st['launches'] / 5:g} kernel launches a forward, {conv_kernels:g} of "
+          f"them conv3x3 kernels ({conv_ms:.4f} ms), device time {device_ms:.3f} ms, busy "
+          f"{st['busy']:.3f} of the kernels' span")
     return launches
 
 
@@ -584,11 +728,12 @@ def _corr_case(corr, rng, shape, dtype):
     return (fl, fr, d), err.max().item(), tol, bool((err <= bound).all())
 
 
-def _soft_argmin_case(sa_ops, sa, rng, shape, scale, temperature, epilogue, dtype=torch.float32):
+def _soft_argmin_case(sa_ops, sa, rng, shape, scale, temperature, epilogue, dtype=torch.float32,
+                      spread=2.0):
     """One soft_argmin kernel call against its plain version on the card.
     Disparity: atol 1e-5 x scale + rtol 1e-5 (the kernel divides sums, the
     plain version sums a normalised softmax); depth: rtol 1e-5."""
-    cost = _rand(rng, shape, 2.0, dtype)
+    cost = _rand(rng, shape, spread, dtype)
     if epilogue == "depth":
         got = sa.soft_argmin(cost, scale=scale, epilogue="depth", fb=FB)
     else:
@@ -622,15 +767,23 @@ def _stereo_joins(upcat, rng, tag, b, shapes, dtype) -> dict:
 
 def _soft_argmin_main(sa_ops, sa, rng, tag, shape, scale) -> dict:
     """soft_argmin at a stereo path's readout shape against its plain
-    version, with both times."""
+    version, with both times, the kernel's device time and its bound."""
     cost, err, ok = _soft_argmin_case(sa_ops, sa, rng, shape, scale, 1.0, "none")
     ms = time_ms(lambda: sa.soft_argmin(cost, scale=scale))
     plain_ms = time_ms(lambda: sa.soft_argmin_plain(cost, scale=scale))
-    print(f"[{tag} soft_argmin fp32] {shape} x{scale:g}: max|err| {err:.3g} "
-          f"(atol 1e-5 x scale + rtol 1e-5) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-    check(ok, f"soft_argmin {shape} disagrees with its plain version")
-    r = {"err": err, "ms": ms, "plain_ms": plain_ms}
+    dev_ms = _queued_ms(lambda: sa.soft_argmin(cost, scale=scale))
+    kernel_ms, launches = _kernel_time(lambda: sa.soft_argmin(cost, scale=scale), n=RUNS)
+    r = {"err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms}
     add_bound(r, nbytes(cost) + cost[..., 0].numel() * 4, SOFT_ARGMIN_OPS * cost.numel(), "fp32")
+    kernel = (f"{kernel_ms:.4f} ms of kernel time in {launches} launch(es) by torch.profiler "
+              f"({100 * r['bound_ms'] / kernel_ms:.1f}% of the bound)" if launches else
+              "kernel time not measured (the profiler recorded no event)")
+    print(f"[{tag} soft_argmin fp32] {shape} x{scale:g} (lanes, vectors a lane: "
+          f"{sa.lane_plan(shape[-1], cost.dtype)}): max|err| {err:.3g} (atol 1e-5 x scale + rtol "
+          f"1e-5) kernel {ms:.4f} ms by call, {dev_ms:.4f} ms device (events queued behind a "
+          f"spin kernel, the card's launch latency included), {kernel}; plain {plain_ms:.4f} "
+          f"ms; bound {r['bound_ms']:.4f} ms (bytes)")
+    check(ok, f"soft_argmin {shape} disagrees with its plain version")
     return r
 
 
@@ -655,11 +808,14 @@ def phase_stereo_kernels(corr, sa_ops, sa, upcat) -> dict:
             check(ok, f"correlation {dt} {shape} disagrees with its plain version")
 
     res["soft_argmin"] = _soft_argmin_main(sa_ops, sa, rng, 6, *SOFT_ARGMIN_MAIN)
-    for shape, scale, temperature, epilogue in SOFT_ARGMIN_EXTRA:
-        _, err, ok = _soft_argmin_case(sa_ops, sa, rng, shape, scale, temperature, epilogue)
-        print(f"[6 soft_argmin fp32 extra] {shape} x{scale:g} temperature {temperature:g} "
-              f"epilogue {epilogue}: max|err| {err:.3g}")
-        check(ok, f"soft_argmin {shape} t={temperature} {epilogue} disagrees")
+    for shape, scale, temperature, epilogue, dtype, spread in SOFT_ARGMIN_EXTRA:
+        _, err, ok = _soft_argmin_case(sa_ops, sa, rng, shape, scale, temperature, epilogue,
+                                       dtype, spread)
+        dt = "fp32" if dtype == torch.float32 else "bf16 cost"
+        print(f"[6 soft_argmin {dt} extra] {shape} x{scale:g} temperature {temperature:g} "
+              f"epilogue {epilogue} spread {spread:g} (lanes, vectors a lane: "
+              f"{sa.lane_plan(shape[-1], dtype)}): max|err| {err:.3g}")
+        check(ok, f"soft_argmin {dt} {shape} t={temperature} {epilogue} spread {spread:g} disagrees")
     shape, scale = SOFT_ARGMIN_MAIN
     _, err, ok = _soft_argmin_case(sa_ops, sa, rng, shape, scale, 1.0, "none", torch.bfloat16)
     print(f"[6 soft_argmin bf16 cost extra] {shape} x{scale:g}: max|err| {err:.3g}")
@@ -857,45 +1013,98 @@ def _device_ms(p, lt, rt, n: int = 10) -> float:
     return start.elapsed_time(end) / n
 
 
-def _profile(forward, n: int = 3) -> str:
-    """Device time by kernel over n calls of ``forward`` (torch.profiler):
-    the kernel time per forward, its busy share of the span from the first
-    kernel's start to the last one's end, and the largest kernels."""
+def _profile_stats(forward, n: int = 3) -> dict:
+    """Device time by kernel over n calls of ``forward`` (torch.profiler),
+    after one call to warm up: {"by_name": {kernel: (us, launches)},
+    "launches": all launches, "busy": the busy share of the span from the
+    first kernel's start to the last one's end, "prof": the profiler}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     forward()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            forward()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    if not spans:
-        return "profiler: no device time recorded (not measured)"
+    # Now and then a window comes back without device events (seen in probe
+    # calls on an NVIDIA H100); it is measured again, up to three times.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                forward()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        if spans:
+            break
     by_name: dict = {}
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s_, e_, name in spans:
-        t, k = by_name.get(name, (0.0, 0))
-        by_name[name] = (t + (e_ - s_), k + 1)
-        if s_ > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s_, e_
-        else:
-            cur_e = max(cur_e, e_)
-    busy += cur_e - cur_s
+    busy = 0.0
+    if spans:
+        cur_s, cur_e = spans[0][0], spans[0][1]
+        for s_, e_, name in spans:
+            t, k = by_name.get(name, (0.0, 0))
+            by_name[name] = (t + (e_ - s_), k + 1)
+            if s_ > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s_, e_
+            else:
+                cur_e = max(cur_e, e_)
+        busy += cur_e - cur_s
+        busy /= max(e_ for _, e_, _ in spans) - spans[0][0]
+    return {"by_name": by_name, "launches": len(spans), "busy": busy, "prof": prof}
+
+
+# Spin cycles (about 1 ms) that hold the stream while a call is launched,
+# longer than any call's launch from Python.
+SPIN_CYCLES = 2_000_000
+
+
+def _queued_ms(fn, runs: int = RUNS) -> float:
+    """Median device time of one call of fn: CUDA events recorded around it
+    while the stream waits behind a spin kernel (torch.cuda._sleep), so the
+    call's launch from Python lies outside them."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _kernel_time(fn, n: int = 10):
+    """(kernel ms, kernel launches) of one call of fn by torch.profiler over
+    n calls. The profiler now and then drops an event (seen in probe calls
+    on an NVIDIA H100): the launches are rounded to a whole number a call,
+    and the kernel time is the mean of the recorded launches times that
+    number."""
+    st = _profile_stats(fn, n)
+    launches = round(st["launches"] / n)
+    mean_us = sum(t for t, _ in st["by_name"].values()) / max(st["launches"], 1)
+    return mean_us * launches / 1e3, launches
+
+
+def _profile(forward, n: int = 3) -> str:
+    """Device time by kernel over n calls of ``forward`` (torch.profiler):
+    the kernel time per forward, its busy share of the span from the first
+    kernel's start to the last one's end, and the largest kernels."""
+    st = _profile_stats(forward, n)
+    by_name = st["by_name"]
+    if not by_name:
+        return "profiler: no device time recorded (not measured)"
     total = sum(t for t, _ in by_name.values())
-    span = max(e_ for _, e_, _ in spans) - spans[0][0]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]
 
     def self_device_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    ops = sorted((e for e in prof.key_averages() if e.key.startswith("aten::")),
+    ops = sorted((e for e in st["prof"].key_averages() if e.key.startswith("aten::")),
                  key=lambda e: -self_device_us(e))[:10]
     return (f"profiler over {n} forwards: kernel time {total / n / 1e3:.3f} ms per forward in "
-            f"{len(spans) / n:.0f} launches, busy {busy / span:.3f} of the kernels' span; "
+            f"{st['launches'] / n:.0f} launches, busy {st['busy']:.3f} of the kernels' span; "
             "largest kernels (ms per forward, launches per forward): "
             + "; ".join(f"{name[:90]} {t / n / 1e3:.4f} ({k / n:g})" for name, (t, k) in top)
             + " || by op (self device ms per forward, calls per forward): "
@@ -1871,7 +2080,43 @@ def phase_repairs(sdt, benchmark, fts, _build) -> None:
           f"{float(by_file['depth'].max()):.4g} m)")
 
 
+def measure(root: str, frames: int) -> int:
+    """The --measure mode: the package under root, timed as the module
+    docstring says."""
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    sys.path.insert(0, os.path.abspath(root))
+    import scenedepthestimation_tpu_torch as sdt
+    from scenedepthestimation_tpu_torch.ops.cuda import conv_block
+
+    frame = np.random.default_rng(0).integers(0, 256, SRC_HW + (3,), dtype=np.uint8)
+    p = sdt.load_weights(None, CONFIG, seed=0, device="cuda")
+    lat = _frame_ms(sdt, p, frame, frames)
+    out = {"package": os.path.dirname(sdt.__file__), "device": torch.cuda.get_device_name(0),
+           "b1_frames": frames, "b1_median_ms": float(np.median(lat)),
+           "b1_p90_ms": float(np.percentile(lat, 90)), "b1_mean_ms": float(np.mean(lat)),
+           "conv3x3_fp32": []}
+    rng = np.random.default_rng(0)
+    for name, h, w, cin, cout, act, out_dtype in CONV_SHAPES:
+        args, err, tol, ok = _conv_case(
+            conv_block, rng, (1, h, w, cin, cout), act, "reflect", torch.float32, out_dtype)
+        check(ok, f"conv3x3 fp32 {name} disagrees with its plain version ({err:.3g}, {tol})")
+        slab = conv_block.arrange_slab(args[1]) if conv_block.uses_slab(args[0], cout) else None
+        out["conv3x3_fp32"].append({
+            "name": name, "max_abs_err": err,
+            "call_ms": time_ms(lambda: conv_block.conv3x3(*args, slab=slab)),
+            "device_ms": _queued_ms(lambda: conv_block.conv3x3(*args, slab=slab)),
+            "launches": _kernel_time(lambda: conv_block.conv3x3(*args, slab=slab))[1]})
+    for k in ("call_ms", "device_ms", "launches"):
+        out[f"conv3x3_fp32_{k}"] = sum(r[k] for r in out["conv3x3_fp32"])
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--measure"]:
+        rest = sys.argv[2:]
+        return measure(rest[0] if rest else os.path.dirname(os.path.abspath(__file__)),
+                       int(rest[1]) if len(rest) > 1 else 200)
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     import scenedepthestimation_tpu_torch as sdt
     from scenedepthestimation_tpu_torch import benchmark, serve
@@ -1891,6 +2136,7 @@ def main() -> int:
     phase_build(_build)
     res = phase_kernels(conv_block, upcat)
     launches = phase_end_to_end(sdt, _build, conv_block, upcat)
+    phase_conv_device(conv_block, res["conv3x3"])
     phase_serve(sdt, serve)
     stereo_res = phase_stereo_kernels(corr, sa_ops, sa, upcat)
     stereo_launches = phase_stereo_end_to_end(sdt, _build, corr, sa, upcat)
@@ -1907,18 +2153,22 @@ def main() -> int:
 
     # Each entry covers the main paths that run the kernel: mono b1 (fp32),
     # stereo b4 (fp32), config-5 stereo b16 (bf16) and the mono bench b128
-    # (bf16, fused tail on); winograd's is the folded bench encoder's 13
-    # stride-1 convs (bf16, phases 15-16). ms / plain_ms / bound_ms /
-    # library_ms are summed over the kernel's calls on those paths, i.e. its
-    # device time per forward of each path, added up; launches are the
-    # counts per forward of those paths; max_abs_err is over the same calls.
+    # (bf16, fused tail on); conv3x3's fp32 body (mono b1) and bf16 body
+    # (the bench) are entries of their own; winograd's is the folded bench
+    # encoder's 13 stride-1 convs (bf16, phases 15-16). ms / plain_ms /
+    # bound_ms / library_ms are summed over the kernel's calls on those
+    # paths, each call timed from Python with its launch; device_ms, where
+    # given, is the same calls' device time by torch.profiler; launches are
+    # the counts per forward of those paths; max_abs_err is over the same
+    # calls.
     def merged(*parts):
         out = {"err": max(r["err"] for r in parts), "ms": 0.0, "plain_ms": 0.0,
                "bound_ms": 0.0, "bound_parts": {}}
         keys = ("ms", "plain_ms", "bound_ms")
-        if all("library_ms" in r for r in parts):
-            out["library_ms"] = 0.0
-            keys += ("library_ms",)
+        for extra in ("library_ms", "device_ms"):
+            if all(extra in r for r in parts):
+                out[extra] = 0.0
+                keys += (extra,)
         for r in parts:
             for k in keys:
                 out[k] += r[k]
@@ -1926,7 +2176,10 @@ def main() -> int:
                 out["bound_parts"][by] = out["bound_parts"].get(by, 0.0) + t
         return out
 
-    res["conv3x3"] = merged(res["conv3x3"], bench["kernels"]["conv3x3"])
+    # conv3x3's two bodies are rows of their own: fp32 (config 1) and bf16
+    # (the bench).
+    res["conv3x3_fp32"] = res.pop("conv3x3")
+    res["conv3x3_bf16"] = bench["kernels"]["conv3x3"]
     res["upsample_concat"] = merged(res["upsample_concat"], stereo_res["upsample_concat"],
                                     bf16_res["upsample_concat"],
                                     bench["kernels"]["upsample_concat"])
@@ -1936,7 +2189,8 @@ def main() -> int:
     res["fused_tail"] = tail_res
     res["winograd"] = wino_res
     launches = {
-        "conv3x3": launches["conv3x3"] + bench["launches"]["conv3x3"],
+        "conv3x3_fp32": launches["conv3x3"],
+        "conv3x3_bf16": bench["launches"]["conv3x3"],
         "upsample_concat": launches["upsample_concat"] + stereo_launches["upsample_concat"]
         + bf16_launches["upsample_concat"] + bench["launches"]["upsample_concat"],
         "correlation": stereo_launches["correlation"] + bf16_launches.get("correlation", 0),
@@ -1946,10 +2200,14 @@ def main() -> int:
         "winograd": folded_res["launches"],
     }
     meta = {
-        "conv3x3": ("scenedepthestimation_tpu_torch/csrc/conv_block.cu",
-                    "scenedepthestimation_tpu/ops/pallas/conv_block.py:167",
-                    f"{CONFIG} b1 decoder, 11 shapes, fp32 + {BENCH_CONFIG} b128 decoder, "
-                    "9 shapes, bf16"),
+        "conv3x3_fp32": ("scenedepthestimation_tpu_torch/csrc/conv_block.cu",
+                         "scenedepthestimation_tpu/ops/pallas/conv_block.py:167",
+                         f"{CONFIG} b1 decoder, 11 shapes, fp32 (conv3x3_f32_kernel and the "
+                         "head kernel)"),
+        "conv3x3_bf16": ("scenedepthestimation_tpu_torch/csrc/conv_block.cu",
+                         "scenedepthestimation_tpu/ops/pallas/conv_block.py:167",
+                         f"{BENCH_CONFIG} b128 decoder, 9 shapes, bf16 (conv3x3_tc_kernel and "
+                         "the head kernel)"),
         "upsample_concat": ("scenedepthestimation_tpu_torch/csrc/upsample_concat.cu",
                             "scenedepthestimation_tpu/ops/pallas/upsample_concat.py:37",
                             f"{CONFIG} b1 decoder 4 joins fp32 + {STEREO_CONFIG} b4 "
@@ -1987,7 +2245,8 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["bound_parts"], key=r["bound_parts"].get),
-            "library_ms": r.get("library_ms"), "shapes": shapes})
+            "library_ms": r.get("library_ms"), "device_ms": r.get("device_ms"),
+            "shapes": shapes})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

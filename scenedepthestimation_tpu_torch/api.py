@@ -76,9 +76,9 @@ class Predictor:
     With ``fast_borders`` the decoder runs the JAX program's fast-border
     mode (zero-bordered convs, ``models/unet_decoder.py``) where the JAX
     program takes its collapsed decoder (``_takes_collapsed_decoder``),
-    and the reflect decoder elsewhere, as the JAX program does. On CUDA in
-    bf16 the decoder's weight slabs for the conv3x3 kernel's tensor-core
-    path are made here, once.
+    and the reflect decoder elsewhere, as the JAX program does. On CUDA the
+    decoder's weight slabs for the conv3x3 kernel (Cout > 1, bf16 and
+    fp32) are made here, once.
 
     On CUDA with a float32 preset it turns TF32 off for cuDNN convolutions
     and matmuls (``torch.backends.cudnn.allow_tf32`` and
@@ -112,7 +112,7 @@ class Predictor:
             model.encoder.to(memory_format=torch.channels_last)
             fast = cfg.mono.fast_borders and _takes_collapsed_decoder(cfg.mono)
             model.decoder.border_mode = "fast" if fast else "exact"
-            if self.device.type == "cuda" and self.dtype == torch.bfloat16:
+            if self.device.type == "cuda":
                 for m in model.decoder.modules():
                     if isinstance(m, Conv3x3) and m.weight.shape[0] > 1:
                         m.slab()

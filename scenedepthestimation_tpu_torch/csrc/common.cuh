@@ -18,6 +18,30 @@ namespace sde {
 // dtype codes shared with the Python wrappers.
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
+constexpr int kMaxDevices = 64;
+
+// Makes `device` current, asking the runtime to switch only when another
+// one is (cudaGetDevice costs less than cudaSetDevice).
+inline cudaError_t use_device(int device) {
+  int current = -1;
+  const cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess || current == device) return err;
+  return cudaSetDevice(device);
+}
+
+// The SM count of `device`, asked of the runtime once per device.
+inline cudaError_t sm_count(int device, int* sms) {
+  static int cached[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cached[device] == 0) {
+    const cudaError_t err =
+        cudaDeviceGetAttribute(&cached[device], cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = cached[device];
+  return cudaSuccess;
+}
+
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);

@@ -8,17 +8,25 @@
 // Replaces the TPU kernel scenedepthestimation_tpu/ops/pallas/
 // soft_argmin.py::soft_argmin_pallas.
 //
-// What bounds it on an H100: bytes. It reads the volume once (6.3 MB at
-// stereo_256x512_b4) and writes 4 bytes per pixel, with about 6 operations
-// and one exponential per element.
+// What bounds it on an H100: bytes. It reads the volume once and writes 4
+// bytes a pixel (86.7 MB, 25.9 us at stereo_kitti2015_b16_bf16_v5e8's
+// (16, 96, 288, 48) fp32 cost; 6.3 MB at stereo_256x512_b4's), with about 6
+// operations and one exponential an element.
 //
-// Design (simple first version): one warp per pixel, in a grid-stride
-// loop. The lanes read the pixel's D contiguous values (coalesced), take
-// the maximum with shuffles, then sum exp and d*exp and reduce both with
-// shuffles; lane 0 divides, scales and writes. The second pass re-reads
-// the row from L1. Any D >= 1 works (D is 48 at stereo_256x512_b4 and 24
-// at the d96 preset). The output is fp32 whatever the input type; a bf16
-// cost is upcast on load, as on the TPU.
+// Design: a group of K lanes (a power of two) shares a pixel, so a warp
+// reads 32 / K whole rows. Each lane issues all its 16-byte loads (NV of
+// them: 4 fp32 or 8 bf16 values each, lane j of a group taking the row's
+// vectors j, j + K, j + 2K, ...) before any arithmetic, and keeps the
+// values in registers, so the row is read from memory once. The group
+// takes the max, then the two sums, with log2(K) shuffles each; the
+// group's first lane writes, adjacent pixels adjacent words. The wrapper
+// picks K and NV (ops/cuda/soft_argmin.py lane_plan: the least K whose NV
+// is at most 4; D = 48 fp32 is K = 4, NV = 3). The grid covers about one
+// wave of resident blocks and strides over the pixels. Rows that are not
+// 16-byte aligned (fp32 with D % 4 != 0, bf16 with D % 8 != 0) or longer
+// than 32 lanes x 4 vectors take the looped path: one warp a pixel, 4-byte
+// loads, the row read twice. A bf16 cost is upcast on load, as on the TPU;
+// the output is fp32.
 #include <cmath>
 
 #include "common.cuh"
@@ -27,6 +35,7 @@ namespace sde {
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxVecs = 4;  // 16-byte vectors a lane holds
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -40,6 +49,87 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float finish(float num, float den, float scale, int depth,
+                                        float fb) {
+  const float v = num / den * scale;
+  return depth ? fb / fmaxf(v, 1e-6f) : v;
+}
+
+// The values of a 16-byte vector: 4 fp32 or 8 bf16.
+__device__ __forceinline__ void vec_to_float(const uint4 v, float (&f)[4]) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ void vec_to_float(const uint4 v, float (&f)[8]) {
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// Groups of 2^lanes_log2 lanes a pixel, NV 16-byte vectors a lane. The
+// warp's pixels are p0 .. p0 + 32 / K - 1, all its lanes stepping together
+// so that every shuffle has the full warp; lanes past n load nothing.
+template <typename T, int NV>
+__global__ void __launch_bounds__(kThreads)
+    soft_argmin_lanes_kernel(const T* __restrict__ cost, float* __restrict__ out, long long n,
+                             int D, int lanes_log2, float scale, int depth, float fb) {
+  constexpr int VE = 16 / sizeof(T);  // values a vector
+  const int K = 1 << lanes_log2;
+  const int lane = threadIdx.x & 31, j = lane & (K - 1);
+  const int nvec = D / VE;
+  const long long per_warp = 32 >> lanes_log2;
+  const long long warps = (long long)gridDim.x * (kThreads / 32);
+  for (long long p0 = ((long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * per_warp;
+       p0 < n; p0 += warps * per_warp) {
+    const long long p = p0 + (lane >> lanes_log2);
+    const bool live = p < n;
+    const uint4* row = reinterpret_cast<const uint4*>(cost + (live ? p : 0) * D);
+    uint4 v[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int vi = j + i * K;
+      v[i] = live && vi < nvec ? __ldg(row + vi) : make_uint4(0u, 0u, 0u, 0u);
+    }
+    float m = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (!live || j + i * K >= nvec) continue;
+      float f[VE];
+      vec_to_float(v[i], f);
+#pragma unroll
+      for (int e = 0; e < VE; ++e) m = fmaxf(m, -f[e]);
+    }
+    for (int o = K >> 1; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float den = 0.f, num = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int vi = j + i * K;
+      if (!live || vi >= nvec) continue;
+      float f[VE];
+      vec_to_float(v[i], f);
+#pragma unroll
+      for (int e = 0; e < VE; ++e) {
+        const float ex = expf(-f[e] - m);
+        den += ex;
+        num += ex * static_cast<float>(vi * VE + e);
+      }
+    }
+    for (int o = K >> 1; o > 0; o >>= 1) {
+      den += __shfl_xor_sync(0xffffffffu, den, o);
+      num += __shfl_xor_sync(0xffffffffu, num, o);
+    }
+    if (live && j == 0) out[p] = finish(num, den, scale, depth, fb);
+  }
+}
+
+// The looped path: one warp a pixel in a grid-stride loop; the lanes read
+// the pixel's D values (coalesced), take the max, then the sums, each
+// reduced across the warp; lane 0 writes. Any D >= 1.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     soft_argmin_kernel(const T* __restrict__ cost, float* __restrict__ out,
@@ -60,22 +150,62 @@ __global__ void __launch_bounds__(kThreads)
     }
     den = warp_sum(den);
     num = warp_sum(num);
-    if (lane == 0) {
-      float v = num / den * scale;
-      if (depth) v = fb / fmaxf(v, 1e-6f);
-      out[p] = v;
-    }
+    if (lane == 0) out[p] = finish(num, den, scale, depth, fb);
   }
 }
 
+// Blocks for `pixels_per_block`: enough for every pixel, at most about one
+// wave of resident blocks (2048 threads an SM); the kernels stride.
+cudaError_t grid_for(long long n, long long pixels_per_block, int device, unsigned* blocks) {
+  int sms = 0;
+  const cudaError_t err = sm_count(device, &sms);
+  if (err != cudaSuccess) return err;
+  const long long wave = (long long)sms * (2048 / kThreads);
+  *blocks = static_cast<unsigned>(
+      std::min<long long>((n + pixels_per_block - 1) / pixels_per_block, wave));
+  return cudaSuccess;
+}
+
 template <typename T>
-cudaError_t launch(const void* cost, float* out, long long n, int D,
-                   float scale, int depth, float fb, cudaStream_t stream) {
-  constexpr long long kPerBlock = kThreads / 32;
-  const long long blocks =
-      std::min<long long>((n + kPerBlock - 1) / kPerBlock, 1 << 20);
-  soft_argmin_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(cost), out, n, D, scale, depth, fb);
+cudaError_t launch(const void* cost, float* out, long long n, int D, int lanes, int vecs,
+                   float scale, int depth, float fb, int device, cudaStream_t stream) {
+  const T* c = static_cast<const T*>(cost);
+  unsigned blocks = 0;
+  if (lanes == 0) {
+    const cudaError_t err = grid_for(n, kThreads / 32, device, &blocks);
+    if (err != cudaSuccess) return err;
+    soft_argmin_kernel<T><<<blocks, kThreads, 0, stream>>>(c, out, n, D, scale, depth, fb);
+    return cudaGetLastError();
+  }
+  int lanes_log2 = 0;
+  while ((1 << lanes_log2) < lanes) ++lanes_log2;
+  constexpr int VE = 16 / sizeof(T);
+  // The fast path's contract: a power of two of lanes, up to 4 vectors a
+  // lane covering the row, 16-byte aligned rows.
+  if ((1 << lanes_log2) != lanes || lanes > 32 || vecs < 1 || vecs > kMaxVecs ||
+      D % VE != 0 || (long long)lanes * vecs * VE < D ||
+      (reinterpret_cast<uintptr_t>(cost) & 15) != 0)
+    return cudaErrorInvalidValue;
+  const cudaError_t err = grid_for(n, kThreads / lanes, device, &blocks);
+  if (err != cudaSuccess) return err;
+  switch (vecs) {
+    case 1:
+      soft_argmin_lanes_kernel<T, 1><<<blocks, kThreads, 0, stream>>>(c, out, n, D, lanes_log2,
+                                                                      scale, depth, fb);
+      break;
+    case 2:
+      soft_argmin_lanes_kernel<T, 2><<<blocks, kThreads, 0, stream>>>(c, out, n, D, lanes_log2,
+                                                                      scale, depth, fb);
+      break;
+    case 3:
+      soft_argmin_lanes_kernel<T, 3><<<blocks, kThreads, 0, stream>>>(c, out, n, D, lanes_log2,
+                                                                      scale, depth, fb);
+      break;
+    default:
+      soft_argmin_lanes_kernel<T, 4><<<blocks, kThreads, 0, stream>>>(c, out, n, D, lanes_log2,
+                                                                      scale, depth, fb);
+      break;
+  }
   return cudaGetLastError();
 }
 
@@ -84,19 +214,21 @@ cudaError_t launch(const void* cost, float* out, long long n, int D,
 
 // cost (n, D) contiguous in `dtype` (0 float32, 1 bfloat16); out (n)
 // float32. depth: 0 writes disp * scale, 1 writes fb / max(disp * scale,
-// 1e-6). Needs n, D >= 1.
-extern "C" int sde_soft_argmin(const void* cost, void* out, long long n, int D,
-                               int dtype, float scale, int depth, float fb,
+// 1e-6). lanes, vecs: the fast path's lanes a pixel and 16-byte vectors a
+// lane (lane_plan in ops/cuda/soft_argmin.py), or lanes = 0 for the looped
+// path. Needs n, D >= 1.
+extern "C" int sde_soft_argmin(const void* cost, void* out, long long n, int D, int dtype,
+                               float scale, int depth, float fb, int lanes, int vecs,
                                int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = sde::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
   if (dtype == sde::kFloat32)
-    err = sde::launch<float>(cost, o, n, D, scale, depth, fb, s);
+    err = sde::launch<float>(cost, o, n, D, lanes, vecs, scale, depth, fb, device, s);
   else if (dtype == sde::kBFloat16)
-    err = sde::launch<__nv_bfloat16>(cost, o, n, D, scale, depth, fb, s);
+    err = sde::launch<__nv_bfloat16>(cost, o, n, D, lanes, vecs, scale, depth, fb, device, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

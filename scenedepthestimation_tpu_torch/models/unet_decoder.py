@@ -59,7 +59,8 @@ class Conv3x3(nn.Module):
     Holds ``weight`` (Cout, Cin, 3, 3) and ``bias`` (Cout), the parameters
     of an ``nn.Conv2d(cin, cout, 3)``. ``out_dtype`` pins the output dtype
     (the heads emit fp32); by default it is the input's. For the kernel's
-    bf16 tensor-core path it keeps the weight's slab (:meth:`slab`).
+    paths with Cout > 1 (bf16 and fp32) it keeps the weight's slab
+    (:meth:`slab`).
     """
 
     def __init__(

@@ -51,21 +51,21 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, w, slab, bias, out, workspace, splits, B, H, W, Cin, Cout, dtype,
-    # out_f32, act, border, device, stream
-    "sde_conv3x3": (_P,) * 6 + (_I,) * 11 + (_P,),
-    # B, H, W, Cin, Cout, dtype, num_sms
-    "sde_conv3x3_splits": (_I,) * 7,
-    # w, slab, Cin, Cout, device, stream
-    "sde_conv3x3_arrange": (_P, _P, _I, _I, _I, _P),
+    # x, w, slab, bias, out, workspace, ws_elems, counters, n_counters, B, H,
+    # W, Cin, Cout, dtype, out_f32, act, border, device, stream
+    "sde_conv3x3": (_P,) * 6 + (_L, _P, _L) + (_I,) * 10 + (_P,),
+    # B, H, W, Cin, Cout, dtype, device, plan (3 long long)
+    "sde_conv3x3_plan": (_I,) * 7 + (ctypes.POINTER(_L),),
+    # w, slab, Cin, Cout, dtype, device, stream
+    "sde_conv3x3_arrange": (_P, _P, _I, _I, _I, _I, _P),
     # x, skip, out, B, H, W, C1, C2, esize, device, stream
     "sde_upsample_concat": (_P, _P, _P) + (_I,) * 7 + (_P,),
     # fl, fr, out, rows, W, C, D, dtype, device, stream
     "sde_correlation": (_P, _P, _P) + (_I,) * 6 + (_P,),
     # fl, fr, out, rows, W, C, D, device, stream
     "sde_correlation_gram": (_P, _P, _P) + (_I,) * 5 + (_P,),
-    # cost, out, n, D, dtype, scale, depth, fb, device, stream
-    "sde_soft_argmin": (_P, _P, _L, _I, _I, _F, _I, _F, _I, _P),
+    # cost, out, n, D, dtype, scale, depth, fb, lanes, vecs, device, stream
+    "sde_soft_argmin": (_P, _P, _L, _I, _I, _F, _I, _F, _I, _I, _I, _P),
     # y1, w00, b00, w01, b01, wslab, y0, B, h, w, C1, C0, C0o, dtype, device,
     # stream
     "sde_fused_tail": (_P,) * 7 + (_I,) * 8 + (_P,),
@@ -165,6 +165,8 @@ def build() -> str:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(build())
@@ -188,7 +190,9 @@ def check(err: int, name: str) -> None:
 
 
 def stream_of(t) -> int:
-    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    """The raw handle of PyTorch's current stream on ``t``'s device, read
+    without building a ``torch.cuda.Stream`` (which costs host time on every
+    launch of a b1 forward)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -6,10 +6,15 @@
 Kernel 9 of the port, ``csrc/soft_argmin.cu``: the counterpart of the TPU
 kernel ``scenedepthestimation_tpu/ops/pallas/soft_argmin.py::
 soft_argmin_pallas``. :func:`soft_argmin` launches it for a CUDA tensor
-and takes :func:`soft_argmin_plain` for a CPU tensor.
+and takes :func:`soft_argmin_plain` for a CPU tensor. On the card a group
+of lanes shares a pixel and reads its row once as 16-byte vectors
+(:func:`lane_plan`); other rows take a looped path, one warp a pixel.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -17,6 +22,26 @@ from scenedepthestimation_tpu_torch.ops.cuda import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 EPILOGUES = {"none": 0, "depth": 1}
+MAX_VECS = 4  # 16-byte vectors a lane of the kernel holds
+
+
+@functools.lru_cache(maxsize=None)
+def lane_plan(d: int, dtype: torch.dtype) -> Optional[Tuple[int, int]]:
+    """(lanes a pixel, 16-byte vectors a lane) of the kernel's fast path for
+    rows of ``d`` values of ``dtype``: the fewest lanes (a power of two, at
+    most 32) that hold the row in at most :data:`MAX_VECS` vectors each,
+    lane j taking the row's vectors j, j + lanes, ... None where a row is
+    not a whole number of 16-byte vectors or does not fit: the looped path
+    (one warp a pixel) takes it."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    if (d * esize) % 16:
+        return None
+    nvec, lanes = d * esize // 16, 1
+    while -(-nvec // lanes) > MAX_VECS:
+        lanes *= 2
+        if lanes > 32:
+            return None
+    return lanes, -(-nvec // lanes)
 
 
 def _check(cost: torch.Tensor, epilogue: str) -> None:
@@ -57,10 +82,13 @@ def soft_argmin(
     out = torch.empty(cost.shape[:-1], dtype=torch.float32, device=cost.device)
     if out.numel() == 0:
         return out
+    plan = lane_plan(cost.shape[-1], cost.dtype)
+    if cost.data_ptr() % 16:
+        plan = None
     err = _build.lib().sde_soft_argmin(
         cost.data_ptr(), out.data_ptr(), out.numel(), cost.shape[-1],
         _DTYPES[cost.dtype], float(scale), EPILOGUES[epilogue], float(fb),
-        cost.device.index, _build.stream_of(cost),
+        *(plan or (0, 0)), cost.device.index, _build.stream_of(cost),
     )
     _build.check(err, "soft_argmin")
     _build.LAUNCHES["soft_argmin"] += 1

@@ -502,7 +502,7 @@ def test_conv3x3_plain_one_pixel_axes_match_jax(hw, border):
 
 @pytest.mark.parametrize("cin,cout", [(3, 5), (20, 12), (16, 8), (33, 17)])
 def test_slab_layout_feeds_a_plain_implicit_gemm(cin, cout):
-    """The tensor-core path's weight slab: (9, Cin rounded up to 16, Cout
+    """The tensor-core path's bf16 weight slab: (9, Cin rounded up to 16, Cout
     rounded up to 8) elements, per tap and chunk of 16 input channels in
     8 x 8 core matrices (8 output channels n, each 8 contiguous input
     channels k), zero outside the weight. Read back as a K x N matrix per
@@ -514,9 +514,10 @@ def test_slab_layout_feeds_a_plain_implicit_gemm(cin, cout):
     rng = np.random.default_rng(14)
     x = torch.from_numpy(rng.normal(size=(2, 6, 9, cin)).astype(np.float32))
     w = torch.from_numpy((rng.normal(size=(cout, cin, 3, 3)) * 0.1).astype(np.float32))
-    packed = conv_block.arrange_slab(w)  # a CPU weight: the plain arrangement
+    w = w.bfloat16().float()  # values the bf16 slab holds exactly
+    packed = conv_block.arrange_slab(w.bfloat16()).float()  # a CPU weight: the plain arrangement
     _, cin_pad, cout_pad = packed.shape
-    assert tuple(packed.shape) == conv_block.slab_shape(cin, cout) == (
+    assert tuple(packed.shape) == conv_block.slab_shape(cin, cout, torch.bfloat16) == (
         9, -(-cin // 16) * 16, -(-cout // 8) * 8)
     # (tap, kc, nb, kb, n8, k8) -> (tap, kc, kb, k8, nb, n8) = (tap, k, n)
     slab = packed.reshape(9, cin_pad // 16, cout_pad // 8, 2, 8, 8).permute(0, 1, 3, 5, 2, 4)
@@ -536,6 +537,67 @@ def test_slab_layout_feeds_a_plain_implicit_gemm(cin, cout):
     np.testing.assert_allclose(_np(got), _np(want), atol=1e-5)
 
 
+@pytest.mark.parametrize("cin,cout", [(3, 5), (7, 6), (13, 2), (21, 10), (33, 17)])
+def test_f32_slab_layout_feeds_a_numpy_implicit_gemm(cin, cout):
+    """The fp32 kernel's weight slab: (9, Cin rounded up to 8, Cout rounded
+    up to 4), K-major (row tap * cin_pad + k holds output channels n), zero
+    outside the weight. A numpy implicit GEMM over it (the reflect-padded
+    input unfolded tap by tap, channels padded like the slab, one matmul,
+    then bias and ELU) equals conv3x3_plain and the TPU kernel in interpret
+    mode, at Cin and Cout off 4, 8 and 16; fp32 atol 1e-5."""
+    rng = np.random.default_rng(15)
+    b, h, w = 2, 8, 9  # the TPU kernel tiles H in rows of 2 to 16
+    x, k, bias = _conv_inputs(rng, b, h, w, cin, cout)
+    wt = torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+    slab = _np(conv_block.arrange_slab(wt))  # a CPU weight: the plain arrangement
+    _, cin_pad, cout_pad = slab.shape
+    assert slab.shape == conv_block.slab_shape(cin, cout, torch.float32) == (
+        9, -(-cin // 8) * 8, -(-cout // 4) * 4)
+    assert not slab[:, cin:].any() and not slab[:, :, cout:].any()
+    np.testing.assert_array_equal(slab[1, :cin, :cout], k[0, 1])  # tap (0, 1): (Cin, Cout)
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)), mode="reflect")
+    cols = np.stack([xp[:, ky:ky + h, kx:kx + w] for ky in range(3) for kx in range(3)], axis=3)
+    cols = np.pad(cols, ((0, 0),) * 4 + ((0, cin_pad - cin),)).reshape(b * h * w, 9 * cin_pad)
+    pre = (cols @ slab.reshape(9 * cin_pad, cout_pad))[:, :cout] + bias
+    got = np.where(pre > 0, pre, np.expm1(np.minimum(pre, 0))).reshape(b, h, w, cout)
+    np.testing.assert_allclose(got, _port_conv(x, k, bias, "elu", "reflect"), atol=1e-5)
+    want = conv3x3_elu_pallas(jnp.asarray(x), jnp.asarray(k), jnp.asarray(bias),
+                              activation="elu", border="reflect", interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-5)
+
+
+def _conv3x3_split(x, weight, bias, splits):
+    """The fp32 kernel's split schedule in plain PyTorch: each of the
+    ``splits`` slices of whole 8-channel chunks (ceil(chunks / splits)
+    chunks each, the last one short) sums its input channels, the slice
+    sums are added in slice order 0 .. S-1, then bias and ELU."""
+    cin = x.shape[-1]
+    chunks = -(-cin // 8)
+    per = -(-chunks // splits) * 8
+    assert -(-chunks // (per // 8)) == splits, "as many slices as asked"
+    total = None
+    for lo in range(0, cin, per):
+        part = conv_block.conv3x3_plain(x[..., lo:lo + per].contiguous(),
+                                        weight[:, lo:lo + per].contiguous(),
+                                        torch.zeros_like(bias), "none", "reflect")
+        total = part if total is None else total + part
+    return torch.nn.functional.elu(total + bias)
+
+
+@pytest.mark.parametrize("cin,splits", [(512, 22), (40, 3), (21, 2), (17, 3)])
+def test_split_schedule_adds_slices_in_order(cin, splits):
+    """The split schedule (slices of whole chunks added in slice order, then
+    bias and activation) equals the unsplit conv within fp32 atol 1e-5 and
+    gives the same bits on every run."""
+    rng = np.random.default_rng(16)
+    x, k, bias = _conv_inputs(rng, 1, 6, 10, cin, 7)
+    x, bias = torch.from_numpy(x), torch.from_numpy(bias)
+    wt = torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+    got = _conv3x3_split(x, wt, bias, splits)
+    torch.testing.assert_close(got, conv_block.conv3x3_plain(x, wt, bias), atol=1e-5, rtol=0)
+    assert torch.equal(got, _conv3x3_split(x, wt, bias, splits))
+
+
 def test_conv3x3_module_keeps_its_slab_until_the_weight_changes():
     """Conv3x3.slab() arranges once and returns the kept slab; an in-place
     change of the weight (its _version) or a new storage (a dtype cast)
@@ -545,6 +607,8 @@ def test_conv3x3_module_keeps_its_slab_until_the_weight_changes():
     m = Conv3x3(5, 7)
     first = m.slab()
     assert m.slab() is first
+    # An fp32 weight keeps the fp32 kernel's K-major slab.
+    assert tuple(first.shape) == conv_block.slab_shape(5, 7, torch.float32)
     torch.testing.assert_close(first, conv_block.arrange_slab_plain(m.weight.detach()))
     with torch.no_grad():
         m.weight.add_(1.0)
@@ -554,6 +618,7 @@ def test_conv3x3_module_keeps_its_slab_until_the_weight_changes():
     m.to(torch.bfloat16)
     third = m.slab()
     assert third.dtype == torch.bfloat16 and m.slab() is third
+    assert tuple(third.shape) == conv_block.slab_shape(5, 7, torch.bfloat16)
 
 
 def test_depth_decoder_keeps_its_tail_slab_until_the_weights_change():

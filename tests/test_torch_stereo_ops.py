@@ -253,6 +253,89 @@ def test_soft_argmin_matches_pallas_kernel(shape, temperature, scale, epilogue):
     assert got.dtype == torch.float32 and tuple(got.shape) == shape[:-1]
 
 
+def _soft_argmin_lanes(cost, scale, epilogue, fb, lanes, vecs, per_vec):
+    """The kernel's lane-group reduction in plain PyTorch. Lane j of a
+    pixel's ``lanes`` holds the row's vectors j, j + lanes, ... (``vecs``
+    of them, ``per_vec`` values each; past D nothing). Each lane takes the
+    max of its values, the group the max of the lanes'; each lane sums exp
+    and d * exp over its values in order, and the group merges the lanes'
+    sums by xor butterflies (offsets lanes / 2 .. 1) as its first lane,
+    which writes, sees them."""
+    d = cost.shape[-1]
+    c = cost.float().reshape(-1, d)
+    slots = lanes * vecs * per_vec
+    vals = torch.full((c.shape[0], slots), float("inf"))  # exp(-inf) = 0, never the max
+    vals[:, :d] = c
+    vals = vals.reshape(-1, vecs, lanes, per_vec)  # vector i * lanes + j
+    idx = torch.arange(slots, dtype=torch.float32).reshape(vecs, lanes, per_vec)
+    m = (-vals).amax(dim=(1, 3)).amax(dim=1)[:, None, None, None]
+    ex = torch.exp(-vals - m)
+    den = torch.zeros(c.shape[0], lanes)
+    num = torch.zeros(c.shape[0], lanes)
+    for i in range(vecs):
+        for e in range(per_vec):
+            den = den + ex[:, i, :, e]
+            num = num + ex[:, i, :, e] * idx[i, :, e]
+    o = lanes // 2
+    while o:
+        partner = torch.arange(lanes) ^ o
+        den, num = den + den[:, partner], num + num[:, partner]
+        o //= 2
+    disp = num[:, 0] / den[:, 0] * scale
+    if epilogue == "depth":
+        disp = fb / torch.clamp(disp, min=1e-6)
+    return disp.reshape(cost.shape[:-1])
+
+
+# (D, cost dtype, epilogue, cost spread): D = 1 and 7 and the bf16 D = 7 take
+# the looped path (a warp a pixel); D = 12, 24, 48 and 200 the lane groups
+# (1, 2, 4 and 16 lanes in fp32); a spread of 1e3 underflows exp without
+# the max subtracted.
+SA_LANE_CASES = [
+    (1, torch.float32, "none", 2.0),
+    (7, torch.float32, "none", 2.0),
+    (12, torch.float32, "none", 2.0),
+    (24, torch.float32, "none", 2.0),
+    (48, torch.float32, "none", 2.0),
+    (200, torch.float32, "none", 2.0),
+    (7, torch.bfloat16, "none", 2.0),
+    (48, torch.bfloat16, "none", 2.0),
+    (48, torch.float32, "depth", 2.0),
+    (48, torch.float32, "none", 1e3),
+    (200, torch.float32, "none", 1e3),
+]
+
+
+@pytest.mark.parametrize(
+    "d,dtype,epilogue,spread",
+    SA_LANE_CASES,
+    ids=["d1", "d7", "d12", "d24", "d48", "d200", "bf16-d7", "bf16-d48", "depth", "spread-d48",
+         "spread-d200"],
+)
+def test_soft_argmin_lane_groups_match_pallas_kernel(d, dtype, epilogue, spread):
+    """The kernel's schedule (lane_plan's lanes a pixel, or the looped
+    path's 32 lanes of one value a vector) modelled in plain PyTorch, vs
+    the TPU kernel in interpret mode on the same (bf16-rounded) cost:
+    atol 1e-5 x scale + rtol 1e-5 in disparity, rtol 1e-5 in depth."""
+    rng = np.random.default_rng(d)
+    cost = torch.from_numpy(_normal(rng, (2, 3, 5, d), spread)).to(dtype)
+    scale, fb = 4.0, 721.5377 * 0.54
+    plan = sa_kernel.lane_plan(d, dtype)
+    if plan is None:
+        lanes, vecs, per_vec = 32, -(-d // 32), 1
+    else:
+        (lanes, vecs), per_vec = plan, 16 // cost.element_size()
+    assert (plan is None) == (d in (1, 7))
+    got = _soft_argmin_lanes(cost, scale, epilogue, fb, lanes, vecs, per_vec)
+    jcost = jnp.asarray(_np(cost.float()))
+    if dtype == torch.bfloat16:
+        jcost = jcost.astype(jnp.bfloat16)
+    want = np.asarray(soft_argmin_pallas(jcost, scale=scale, epilogue=epilogue, fb=fb,
+                                         interpret=True))
+    atol = 0.0 if epilogue == "depth" else 1e-5 * scale
+    np.testing.assert_allclose(_np(got), want, atol=atol, rtol=1e-5)
+
+
 def test_soft_argmin_wrapper_upcasts_bf16_and_counts_nothing():
     rng = np.random.default_rng(3)
     cost = torch.from_numpy(_normal(rng, (1, 2, 3, 10))).bfloat16()
