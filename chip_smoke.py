@@ -41,7 +41,13 @@ Phases, one line each (more for the per-shape kernel checks):
      device time; busy share);
   5. serving: 4 PNG frames through serve.serve_requests (depth=3);
   6. stereo kernels: correlation at stereo_256x512_b4's (4, 64, 128, 64)
-     D=48 in fp32 and bf16 plus off-path shapes, soft_argmin at its
+     D=48 in fp32 and bf16 on the tower's interleaved halves (as
+     split_pair hands them over: views, batch stride 2*H*W*C), with its
+     tile plan, its ptxas lines (0 bytes of spill stores) and, in fp32,
+     its device time (CUDA events queued behind a spin kernel), kernel
+     time and launches (torch.profiler: one a call) and the share of its
+     bound; plus off-path shapes (D = 1, W below one segment, two D tiles,
+     C = 5, views off 16 bytes, contiguous tensors), soft_argmin at its
      (4, 64, 128, 48) x4 (with its device time and bound) plus other D
      (1, 7, 12, 24, 200, 512), a bf16 cost, costs spread over +-1e3, a
      temperature and the depth epilogue, upsample_concat at the
@@ -51,20 +57,26 @@ Phases, one line each (more for the per-shape kernel checks):
      predict_stereo on a batch of 4 uint8 375x1242 pairs: launch counts,
      shapes, finite values, agreement with the CPU run of the same
      weights, and ms/batch of the kernel path and the all-plain path;
+     then one forward's copy kernels and its aten::copy_ calls on a view's
+     feature shape, which must be none (split_pair copies nothing);
   8. stereo serving: 2 PNG pairs through serve.serve_requests;
   9. bf16 stereo kernels: correlation_gram (the banded-Gram tensor-core
      kernel) at stereo_kitti2015_b16_bf16_v5e8's (16, 96, 288, 64) D=48,
-     _c128's C=128, latency_d96's (2, 96, 288, 64) D=24 and ragged shapes,
-     each against its plain version, timed in turns with its plain version
-     and with the correlation kernel on the same bf16 inputs; its ptxas
-     line; upsample_concat at config 5's three bf16 joins and soft_argmin
+     _c128's C=128 and latency_d96's (2, 96, 288, 64) D=24 on the tower's
+     interleaved halves, with the tile plan, each against its plain
+     version, timed in turns with its plain version and with the
+     correlation kernel on the same bf16 inputs, with the device time,
+     kernel time and launches and the share of the bound; ragged shapes
+     (D = 1, W below one tile, D > 64, C = 5, views off 16 bytes,
+     contiguous tensors); its ptxas lines; upsample_concat at config 5's three bf16 joins and soft_argmin
      at its (16, 96, 288, 48) x4 (with its device time and bound), against
      their plain versions;
  10. bf16 stereo end to end: load_weights(None, config 5, seed 0) +
      predict_stereo on 16 uint8 375x1242 pairs on one card: launch counts
      (1 correlation_gram, no correlation), device ms per forward (CUDA
      events), host ms per batch, peak memory, a profile of the device
-     time by kernel, agreement with a CPU bf16 run of the same weights at
+     time by kernel, the forward's copy kernels and its aten::copy_ calls
+     on a view's feature shape (none), agreement with a CPU bf16 run of the same weights at
      b2, the depth abs-rel of bf16 against the card's fp32 run of the same
      weights (seeded, and with the cost head x20 so the readout is
      peaked); latency_d96 at b2 once;
@@ -137,8 +149,13 @@ code in turns in one session: mono_kitti_192x640_fp32's b1 ms/frame over
 FRAMES (default 200) synced predict_mono calls (median, p90, mean; before
 any profiler session of the process), then conv3x3 at its 11 fp32 shapes
 (the kernel against its plain version, the call time, the device time by
-queued events and the launches of a call, as phase 3 takes them); one
-JSON line.
+queued events and the launches of a call, as phase 3 takes them), the
+correlation kernel at config 4's shape and correlation_gram at config
+5's, _c128's and latency_d96's, on contiguous tensors (call, device and
+kernel ms), and config 4's b4 and
+config 5's b16 stereo forwards (device ms by CUDA events, three times,
+before any profiler session; the copy kernels of a forward and its
+aten::copy_ calls on a view's feature shape); one JSON line.
 """
 
 from __future__ import annotations
@@ -260,7 +277,7 @@ def phase_build(_build) -> None:
         spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", text)]
         ptxas = (f" | ptxas: {len(regs)} kernels, max {max(regs, default=0)} "
                  f"registers, {sum(spills)} bytes of spill stores")
-        ptxas += " | " + ptxas_report(text, "correlation_gram_kernel")
+        ptxas += " | " + ptxas_report(text, "correlation_gram_kernel", static_smem=False)
     print(f"[2 build] {_build.build_seconds:.1f} s -> {path}{ptxas}")
 
 
@@ -364,10 +381,19 @@ STEREO_B = 4
 # measured 1.07e-4 px on an NVIDIA H100 80GB HBM3 at 700 W (fp32 sums in
 # other orders, on disparities near 228 px whose fp32 spacing is 1.5e-5).
 STEREO_DISP_ATOL = 5e-4
-# stereo_256x512_b4 at batch 4: the feature grid, its channels and D.
+# stereo_256x512_b4 at batch 4: the feature grid, its channels and D; the
+# main path hands the kernel the tower's interleaved halves.
 CORR_MAIN = (4, 64, 128, 64, 48)
-# Ragged W tile, D > W, the c128 preset's C = 128 at W = 288, odd B*H.
-CORR_EXTRA = [(2, 3, 37, 24, 12), (1, 2, 8, 16, 12), (1, 2, 288, 128, 48), (1, 3, 70, 64, 48)]
+# (shape, layout): ragged W segment, D > W, the c128 preset's C = 128 at
+# W = 288, odd B*H; D = 1; W below one segment; D = 100 (two D tiles) and
+# C = 5 with D = 70; views off 16 bytes (the scalar staging path); the
+# main shape as two contiguous tensors and ragged interleaved halves.
+CORR_EXTRA = [((2, 3, 37, 24, 12), "contiguous"), ((1, 2, 8, 16, 12), "contiguous"),
+              ((1, 2, 288, 128, 48), "contiguous"), ((1, 3, 70, 64, 48), "contiguous"),
+              ((1, 3, 37, 16, 1), "contiguous"), ((1, 2, 40, 64, 48), "contiguous"),
+              ((1, 3, 130, 16, 100), "contiguous"), ((1, 2, 37, 5, 70), "contiguous"),
+              ((2, 3, 37, 24, 12), "misaligned"), ((1, 3, 70, 64, 48), "misaligned"),
+              ((4, 64, 128, 64, 48), "contiguous"), ((3, 5, 70, 64, 48), "interleaved")]
 SOFT_ARGMIN_MAIN = ((4, 64, 128, 48), 4.0)
 # (shape, scale, temperature, epilogue, cost dtype, cost spread): the d96
 # preset's D = 24, D = 12, a temperature of 0.5, the depth epilogue at
@@ -709,13 +735,29 @@ def phase_end_to_end(sdt, _build, conv_block, upcat) -> dict:
     return launches
 
 
-def _corr_case(corr, rng, shape, dtype):
+def _pair(make, shape, layout):
+    """Left and right (B, H, W, C) features from ``make(shape)`` in one of
+    the layouts the kernels read: "interleaved", the two halves of a
+    (2B, H, W, C) stack as split_pair gives them (the main path's layout);
+    "contiguous", two tensors; "misaligned", views one element past a
+    16-byte boundary (the kernels' scalar staging path)."""
+    b, h, w, c = shape
+    if layout == "interleaved":
+        pair = make((2 * b, h, w, c)).view(b, 2, h, w, c)
+        return pair[:, 0], pair[:, 1]
+    if layout == "contiguous":
+        return make(shape), make(shape)
+    n = b * h * w * c
+    flat = make((2 * n + 1,))
+    return flat[1:n + 1].view(shape), flat[n + 1:].view(shape)
+
+
+def _corr_case(corr, rng, shape, dtype, layout):
     """One correlation kernel call against its plain version on the card.
     fp32: atol 1e-5 + rtol 1e-5 (sums of C products in another order).
     bf16: one bf16 rounding of either side, 2^-7 x |ref| + 1e-6."""
     b, h, w, c, d = shape
-    fl = _rand(rng, (b, h, w, c), 1.0, dtype)
-    fr = _rand(rng, (b, h, w, c), 1.0, dtype)
+    fl, fr = _pair(lambda sh: _rand(rng, sh, 1.0, dtype), (b, h, w, c), layout)
     got = corr.correlation(fl, fr, d)
     ref = corr.correlation_plain(fl, fr, d)
     torch.cuda.synchronize()
@@ -787,25 +829,52 @@ def _soft_argmin_main(sa_ops, sa, rng, tag, shape, scale) -> dict:
     return r
 
 
+def _nvcc_log(_build) -> str:
+    with open(os.path.join(os.path.dirname(_build.library_path()), "nvcc.log")) as f:
+        return f.read()
+
+
+def _device_and_kernel(fn, r: dict, tag: str) -> str:
+    """Adds one call's device time (CUDA events queued behind a spin
+    kernel) and kernel time (torch.profiler) to r; returns them as text,
+    with the share of r's bound."""
+    r["device_ms"] = _queued_ms(fn)
+    kernel_ms, launches = _kernel_time(fn, n=RUNS)
+    r["kernel_ms"] = kernel_ms if launches else None
+    check(launches == 1, f"{tag}: {launches} kernel launches a call (want 1)")
+    return (f"{r['device_ms']:.4f} ms device (events queued behind a spin kernel, the card's "
+            f"launch latency included; {100 * r['bound_ms'] / r['device_ms']:.1f}% of the "
+            f"bound), {kernel_ms:.4f} ms of kernel time in {launches} launch by torch.profiler "
+            f"({100 * r['bound_ms'] / kernel_ms:.1f}% of the bound)")
+
+
 def phase_stereo_kernels(corr, sa_ops, sa, upcat) -> dict:
     rng = np.random.default_rng(2)
     res = {}
+    lines = ptxas_lines(_nvcc_log(corr._build), "correlation_kernel")
+    print("[6 correlation ptxas] " + "; ".join(
+        f"{a} {r} registers, {sp} bytes of spill stores" for a, r, sp in lines))
+    check(all(sp == 0 for _, _, sp in lines), "correlation_kernel spills registers")
+    b, h, w, c, d = CORR_MAIN
     for dtype in (torch.float32, torch.bfloat16):
         dt = "fp32" if dtype == torch.float32 else "bf16"
-        args, err, tol, ok = _corr_case(corr, rng, CORR_MAIN, dtype)
+        args, err, tol, ok = _corr_case(corr, rng, CORR_MAIN, dtype, "interleaved")
         ms = time_ms(lambda: corr.correlation(*args))
         plain_ms = time_ms(lambda: corr.correlation_plain(*args))
-        print(f"[6 correlation {dt}] {CORR_MAIN[:4]} D={CORR_MAIN[4]}: max|err| "
-              f"{err:.3g} ({tol}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        timing = f"kernel {ms:.4f} ms by call, plain {plain_ms:.4f} ms"
         check(ok, f"correlation {dt} {CORR_MAIN} disagrees with its plain version")
         if dtype == torch.float32:
             r = res["correlation"] = {"err": err, "ms": ms, "plain_ms": plain_ms}
-            b, h, w, c, d = CORR_MAIN
             add_bound(r, nbytes(*args[:2]) + b * h * w * d * 4, 2 * b * h * w * d * c, "fp32")
-        for shape in CORR_EXTRA:
-            _, err, tol, ok = _corr_case(corr, rng, shape, dtype)
-            print(f"[6 correlation {dt} extra] {shape[:4]} D={shape[4]}: max|err| {err:.3g} ({tol})")
-            check(ok, f"correlation {dt} {shape} disagrees with its plain version")
+            timing += "; " + _device_and_kernel(lambda: corr.correlation(*args), r, "correlation")
+            timing += f"; bound {r['bound_ms']:.4f} ms (bytes)"
+        print(f"[6 correlation {dt}] {CORR_MAIN[:4]} D={d}, the tower's interleaved halves "
+              f"(plan {corr.tile_plan(w, c, d)}): max|err| {err:.3g} ({tol}) {timing}")
+        for shape, layout in CORR_EXTRA:
+            _, err, tol, ok = _corr_case(corr, rng, shape, dtype, layout)
+            print(f"[6 correlation {dt} extra] {shape[:4]} D={shape[4]} {layout}: max|err| "
+                  f"{err:.3g} ({tol})")
+            check(ok, f"correlation {dt} {shape} {layout} disagrees with its plain version")
 
     res["soft_argmin"] = _soft_argmin_main(sa_ops, sa, rng, 6, *SOFT_ARGMIN_MAIN)
     for shape, scale, temperature, epilogue, dtype, spread in SOFT_ARGMIN_EXTRA:
@@ -871,6 +940,11 @@ def phase_stereo_end_to_end(sdt, _build, corr, sa, upcat) -> dict:
     p1 = plain_ms()
     p2 = plain_ms()
     k2 = _ms_per_batch(sdt, p, left, right)
+    # After the host timings: a profiler session slows later launches.
+    lt, rt = torch.from_numpy(left).cuda(), torch.from_numpy(right).cuda()
+    copies, split = _copy_report(lambda: p.stereo_forward(lt, rt), CORR_MAIN[:4])
+    check(split == 0, f"{STEREO_CONFIG}: {split:g} copies of the split views a forward")
+    print(f"[7 stereo copies] {STEREO_CONFIG} b{STEREO_B} forward: {_copy_text(copies, split)}")
     print(f"[7 stereo end to end] {STEREO_CONFIG} b{STEREO_B} {SRC_HW[0]}x{SRC_HW[1]} "
           f"uint8 pairs -> disparity, depth: launches {launches}; vs CPU: disp "
           f"max|err| {d_err:.3g} px (atol {STEREO_DISP_ATOL:g}), depth max rel "
@@ -914,11 +988,19 @@ GRAM_MAIN = [
     ("c128", (16, 96, 288, 128, 48)),
     ("d96", (2, 96, 288, 64, 24)),
 ]
-# A ragged W tile with C = 24 (not a multiple of 16), D > W, D = 100 (two
-# D tiles), C = 5 (the scalar staging path) with D = 70, W % 64 == 0 at
-# D = 64, odd B*H.
-GRAM_EXTRA = [(2, 3, 37, 24, 12), (1, 2, 8, 16, 12), (1, 3, 130, 16, 100),
-              (1, 2, 37, 5, 70), (2, 4, 64, 64, 64), (1, 3, 70, 64, 48)]
+# (shape, layout): a ragged W tile with C = 24 (not a multiple of 16),
+# D > W, D = 100 (two D tiles), C = 5 (the scalar staging path) with
+# D = 70, D = 64 at W = 64, odd B*H; D = 1; W below one tile; D = 128 (two
+# D tiles of 64); views off 16 bytes (the scalar
+# staging path); config 5's shape as two contiguous tensors and ragged
+# interleaved halves.
+GRAM_EXTRA = [((2, 3, 37, 24, 12), "contiguous"), ((1, 2, 8, 16, 12), "contiguous"),
+              ((1, 3, 130, 16, 100), "contiguous"), ((1, 2, 37, 5, 70), "contiguous"),
+              ((2, 4, 64, 64, 64), "contiguous"), ((1, 3, 70, 64, 48), "contiguous"),
+              ((1, 3, 37, 16, 1), "contiguous"), ((1, 2, 40, 64, 48), "contiguous"),
+              ((1, 2, 288, 64, 128), "contiguous"), ((2, 3, 37, 24, 12), "misaligned"),
+              ((1, 3, 70, 64, 48), "misaligned"), ((16, 96, 288, 64, 48), "contiguous"),
+              ((3, 5, 130, 64, 48), "interleaved")]
 # (join, H, W, C1, C2) of config 5's aggregation at b16, bf16.
 BF16_UPCAT_SHAPES = [
     ("dec2", 12, 36, 160, 128),
@@ -941,13 +1023,13 @@ def _bf16_spacing(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -120))) - 7)
 
 
-def _gram_case(gram, gen, shape):
+def _gram_case(gram, gen, shape, layout):
     """One correlation_gram call against its plain version on the card. Both
     round an fp32 sum, taken in another order, to bf16 once, so they may
     sit one bf16 spacing apart; atol 1e-6 for sums that cancel."""
     b, h, w, c, d = shape
-    fl = torch.randn((b, h, w, c), generator=gen, device="cuda").bfloat16()
-    fr = torch.randn((b, h, w, c), generator=gen, device="cuda").bfloat16()
+    fl, fr = _pair(lambda sh: torch.randn(sh, generator=gen, device="cuda").bfloat16(),
+                   (b, h, w, c), layout)
     got = gram.correlation_gram(fl, fr, d)
     ref = gram.correlation_gram_plain(fl, fr, d)
     torch.cuda.synchronize()
@@ -961,8 +1043,11 @@ def _gram_case(gram, gen, shape):
 def phase_bf16_kernels(gram, corr, sa_ops, sa, upcat) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(3)
     res = {}
+    lines = ptxas_lines(_nvcc_log(gram._build), "correlation_gram_kernel")
+    print("[9 correlation_gram ptxas] " + "; ".join(
+        f"{a} {r} registers, {sp} bytes of spill stores" for a, r, sp in lines))
     for name, shape in GRAM_MAIN:
-        args, err, ok = _gram_case(gram, gen, shape)
+        args, err, ok = _gram_case(gram, gen, shape, "interleaved")
         fns = {"kernel": gram.correlation_gram, "correlation kernel": corr.correlation,
                "plain": gram.correlation_gram_plain}
         times = {k: [] for k in fns}
@@ -973,19 +1058,22 @@ def phase_bf16_kernels(gram, corr, sa_ops, sa, upcat) -> dict:
              "plain_ms": float(np.mean(times["plain"]))}
         add_bound(r, nbytes(*args[:2]) + b * h * w * d * 2, 2 * b * h * w * d * c, "bf16")
         by = max(r["bound_parts"], key=r["bound_parts"].get)
-        print(f"[9 correlation_gram bf16] {name} {shape[:4]} D={d}: max|err| {err:.3g} "
-              f"(one bf16 spacing + 1e-6); ms in turns: kernel "
+        dev = _device_and_kernel(lambda: gram.correlation_gram(*args), r, f"correlation_gram {name}")
+        print(f"[9 correlation_gram bf16] {name} {shape[:4]} D={d}, the tower's interleaved "
+              f"halves (plan {gram.tile_plan(w, c, d)}): max|err| {err:.3g} (one bf16 spacing + "
+              "1e-6); ms in turns: kernel "
               + ", ".join(f"{t:.4f}" for t in times["kernel"])
               + " | correlation kernel " + ", ".join(f"{t:.4f}" for t in times["correlation kernel"])
               + " | plain " + ", ".join(f"{t:.4f}" for t in times["plain"])
-              + f"; bound {r['bound_ms']:.4f} ms ({by})")
+              + f"; {dev}; bound {r['bound_ms']:.4f} ms ({by})")
         check(ok, f"correlation_gram {name} {shape} disagrees with its plain version")
         if name == "config5":
             res["correlation_gram"] = r
-    for shape in GRAM_EXTRA:
-        _, err, ok = _gram_case(gram, gen, shape)
-        print(f"[9 correlation_gram bf16 extra] {shape[:4]} D={shape[4]}: max|err| {err:.3g}")
-        check(ok, f"correlation_gram {shape} disagrees with its plain version")
+    for shape, layout in GRAM_EXTRA:
+        _, err, ok = _gram_case(gram, gen, shape, layout)
+        print(f"[9 correlation_gram bf16 extra] {shape[:4]} D={shape[4]} {layout}: max|err| "
+              f"{err:.3g}")
+        check(ok, f"correlation_gram {shape} {layout} disagrees with its plain version")
 
     rng = np.random.default_rng(4)
     res["upsample_concat"] = _stereo_joins(
@@ -1013,7 +1101,7 @@ def _device_ms(p, lt, rt, n: int = 10) -> float:
     return start.elapsed_time(end) / n
 
 
-def _profile_stats(forward, n: int = 3) -> dict:
+def _profile_stats(forward, n: int = 3, record_shapes: bool = False) -> dict:
     """Device time by kernel over n calls of ``forward`` (torch.profiler),
     after one call to warm up: {"by_name": {kernel: (us, launches)},
     "launches": all launches, "busy": the busy share of the span from the
@@ -1026,7 +1114,8 @@ def _profile_stats(forward, n: int = 3) -> dict:
     # Now and then a window comes back without device events (seen in probe
     # calls on an NVIDIA H100); it is measured again, up to three times.
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=record_shapes) as prof:
             for _ in range(n):
                 forward()
             torch.cuda.synchronize()
@@ -1085,6 +1174,28 @@ def _kernel_time(fn, n: int = 10):
     launches = round(st["launches"] / n)
     mean_us = sum(t for t, _ in st["by_name"].values()) / max(st["launches"], 1)
     return mean_us * launches / 1e3, launches
+
+
+def _copy_report(forward, feat_shape, n: int = 3):
+    """The copies of one stereo forward (torch.profiler, shapes recorded):
+    the device kernels whose name holds "copy", {name: (ms, launches) per
+    forward}, and the aten::copy_ calls per forward on a tensor of one
+    view's feature shape (B, H/4, W/4, C): the copies that split_pair
+    made of the tower's interleaved halves before the kernels read them in
+    place."""
+    st = _profile_stats(forward, n, record_shapes=True)
+    kernels = {name: (t / n / 1e3, k / n) for name, (t, k) in st["by_name"].items()
+               if "copy" in name.lower()}
+    split = sum(1 for e in st["prof"].events() if e.name == "aten::copy_" and e.input_shapes
+                and list(e.input_shapes[0]) == list(feat_shape)) / n
+    return kernels, split
+
+
+def _copy_text(kernels: dict, split: float) -> str:
+    return (f"{split:g} aten::copy_ a forward on one view's feature shape; copy kernels (ms, "
+            "launches a forward): " + ("; ".join(
+                f"{name[:100]} {t:.4f} ({k:g})" for name, (t, k) in
+                sorted(kernels.items(), key=lambda kv: -kv[1][0])) or "none"))
 
 
 def _profile(forward, n: int = 3) -> str:
@@ -1150,6 +1261,8 @@ def phase_bf16_end_to_end(sdt, _build, gram, sa, upcat) -> dict:
     torch.cuda.synchronize()
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     prof = _profile(lambda: p.stereo_forward(lt, rt))
+    copies, split = _copy_report(lambda: p.stereo_forward(lt, rt), GRAM_MAIN[0][1][:4])
+    check(split == 0, f"{BF16_CONFIG}: {split:g} copies of the split views a forward")
 
     # The same bf16 weights through the plain versions on the CPU, at b2.
     t0 = time.perf_counter()
@@ -1191,6 +1304,7 @@ def phase_bf16_end_to_end(sdt, _build, gram, sa, upcat) -> dict:
           f"cost head x20 {rel_peaked:.3g}; disp range [{out['disp'].min():.2f}, "
           f"{out['disp'].max():.2f}] px")
     print(f"[10 bf16 stereo profile] {prof}")
+    print(f"[10 bf16 stereo copies] {BF16_CONFIG} b{BF16_B} forward: {_copy_text(copies, split)}")
 
     p96 = sdt.load_weights(None, D96_CONFIG, seed=0, device="cuda")
     sdt.predict_stereo(p96, left[:D96_B], right[:D96_B])
@@ -2087,6 +2201,8 @@ def measure(root: str, frames: int) -> int:
     sys.path.insert(0, os.path.abspath(root))
     import scenedepthestimation_tpu_torch as sdt
     from scenedepthestimation_tpu_torch.ops.cuda import conv_block
+    from scenedepthestimation_tpu_torch.ops.cuda import correlation as corr
+    from scenedepthestimation_tpu_torch.ops.cuda import correlation_gram as gram
 
     frame = np.random.default_rng(0).integers(0, 256, SRC_HW + (3,), dtype=np.uint8)
     p = sdt.load_weights(None, CONFIG, seed=0, device="cuda")
@@ -2095,6 +2211,16 @@ def measure(root: str, frames: int) -> int:
            "b1_frames": frames, "b1_median_ms": float(np.median(lat)),
            "b1_p90_ms": float(np.percentile(lat, 90)), "b1_mean_ms": float(np.mean(lat)),
            "conv3x3_fp32": []}
+    # The stereo forwards' device time (CUDA events around 10 forwards, three
+    # times), before any profiler session of the process.
+    stereo = {}
+    for tag, config, b, feat in (("stereo_fp32", STEREO_CONFIG, STEREO_B, CORR_MAIN[:4]),
+                                 ("stereo_bf16", BF16_CONFIG, BF16_B, GRAM_MAIN[0][1][:4])):
+        left, right = _stereo_pairs(b, 0)
+        ps = sdt.load_weights(None, config, seed=0, device="cuda")
+        lt, rt = torch.from_numpy(left).cuda(), torch.from_numpy(right).cuda()
+        stereo[tag] = (ps, lt, rt, feat, {"config": config, "batch": b, "device_ms": [
+            _device_ms(ps, lt, rt) for _ in range(3)]})
     rng = np.random.default_rng(0)
     for name, h, w, cin, cout, act, out_dtype in CONV_SHAPES:
         args, err, tol, ok = _conv_case(
@@ -2108,6 +2234,25 @@ def measure(root: str, frames: int) -> int:
             "launches": _kernel_time(lambda: conv_block.conv3x3(*args, slab=slab))[1]})
     for k in ("call_ms", "device_ms", "launches"):
         out[f"conv3x3_fp32_{k}"] = sum(r[k] for r in out["conv3x3_fp32"])
+    # The correlation kernels at their main shapes through the wrappers'
+    # public names, on two contiguous tensors (both trees read those).
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for key, fn, shape, dtype in (
+            [("correlation_fp32", corr.correlation, CORR_MAIN, torch.float32)]
+            + [(f"correlation_gram_bf16_{tag}", gram.correlation_gram, shape, torch.bfloat16)
+               for tag, shape in GRAM_MAIN]):
+        fl, fr = _pair(lambda sh: torch.randn(sh, generator=gen, device="cuda").to(dtype),
+                       shape[:4], "contiguous")
+        call = lambda: fn(fl, fr, shape[4])  # noqa: E731
+        r = {"shape": shape, "call_ms": time_ms(call), "device_ms": _queued_ms(call)}
+        r["kernel_ms"], r["launches"] = _kernel_time(call, n=RUNS)
+        out[key] = r
+    # Each stereo forward's copies: split_pair's copies of the tower's
+    # halves, where a tree makes them, and the copy kernels by name.
+    for tag, (ps, lt, rt, feat, r) in stereo.items():
+        copies, r["split_copies"] = _copy_report(lambda: ps.stereo_forward(lt, rt), feat)
+        r["copy_kernels"] = {name: list(v) for name, v in copies.items()}
+        out[tag] = r
     print(json.dumps(out))
     return 0
 
@@ -2158,9 +2303,11 @@ def main() -> int:
     # encoder's 13 stride-1 convs (bf16, phases 15-16). ms / plain_ms /
     # bound_ms / library_ms are summed over the kernel's calls on those
     # paths, each call timed from Python with its launch; device_ms, where
-    # given, is the same calls' device time by torch.profiler; launches are
-    # the counts per forward of those paths; max_abs_err is over the same
-    # calls.
+    # given, is the same calls' device time by CUDA events queued behind a
+    # spin kernel (the card's launch latency inside, the host's outside);
+    # kernel_ms, where given, their kernel time by torch.profiler; launches
+    # are the counts per forward of those paths; max_abs_err is over the
+    # same calls.
     def merged(*parts):
         out = {"err": max(r["err"] for r in parts), "ms": 0.0, "plain_ms": 0.0,
                "bound_ms": 0.0, "bound_parts": {}}
@@ -2246,6 +2393,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["bound_parts"], key=r["bound_parts"].get),
             "library_ms": r.get("library_ms"), "device_ms": r.get("device_ms"),
+            "kernel_ms": r.get("kernel_ms"),
             "shapes": shapes})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -134,9 +134,11 @@ class Refinement(nn.Module):
 
 
 def split_pair(feats: torch.Tensor):
-    """(2B, ...) interleaved left/right stack -> (B, ...) x2, contiguous."""
-    pair = feats.reshape(feats.shape[0] // 2, 2, *feats.shape[1:])
-    return pair[:, 0].contiguous(), pair[:, 1].contiguous()
+    """(2B, ...) interleaved left/right stack -> (B, ...) x2, views of it
+    (batch stride twice the stack's): the correlation kernels read them in
+    place, and the aggregation's concat reads the left one as it is."""
+    pair = feats.view(feats.shape[0] // 2, 2, *feats.shape[1:])
+    return pair[:, 0], pair[:, 1]
 
 
 class StereoNet(nn.Module):

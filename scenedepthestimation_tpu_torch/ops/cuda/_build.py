@@ -60,10 +60,12 @@ _SIGNATURES = {
     "sde_conv3x3_arrange": (_P, _P, _I, _I, _I, _I, _P),
     # x, skip, out, B, H, W, C1, C2, esize, device, stream
     "sde_upsample_concat": (_P, _P, _P) + (_I,) * 7 + (_P,),
-    # fl, fr, out, rows, W, C, D, dtype, device, stream
-    "sde_correlation": (_P, _P, _P) + (_I,) * 6 + (_P,),
-    # fl, fr, out, rows, W, C, D, device, stream
-    "sde_correlation_gram": (_P, _P, _P) + (_I,) * 5 + (_P,),
+    # fl, fl batch stride, fr, fr batch stride, out, B, H, W, C, D, td,
+    # dtype, device, stream
+    "sde_correlation": (_P, _L, _P, _L, _P) + (_I,) * 8 + (_P,),
+    # fl, fl batch stride, fr, fr batch stride, out, B, H, W, C, D, td,
+    # device, stream
+    "sde_correlation_gram": (_P, _L, _P, _L, _P) + (_I,) * 7 + (_P,),
     # cost, out, n, D, dtype, scale, depth, fb, lanes, vecs, device, stream
     "sde_soft_argmin": (_P, _P, _L, _I, _I, _F, _I, _F, _I, _I, _I, _P),
     # y1, w00, b00, w01, b01, wslab, y0, B, h, w, C1, C0, C0o, dtype, device,

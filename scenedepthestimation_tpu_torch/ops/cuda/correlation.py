@@ -7,10 +7,14 @@ Kernel 6 of the port, ``csrc/correlation.cu``: the counterpart of the TPU
 kernel ``scenedepthestimation_tpu/ops/pallas/correlation.py::
 _correlation_pallas_impl``. :func:`correlation` launches it for a CUDA
 tensor and takes :func:`correlation_plain` for a CPU tensor. Both sum in
-fp32 and return the input's dtype, as the TPU kernel does.
+fp32 and return the input's dtype, as the TPU kernel does. Both take the
+halves of the stereo tower's interleaved (2B, H, W, C) output as they
+are: views with contiguous (W, C) rows and a batch stride of 2*H*W*C.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -18,6 +22,61 @@ import torch.nn.functional as F
 from scenedepthestimation_tpu_torch.ops.cuda import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The kernel's blocking (csrc/correlation.cu): a block a W segment of
+# W_SEGMENT columns and a D tile (at most MAX_D_TILE, a multiple of DISPS);
+# a thread a PIXELS x DISPS register tile; CHUNK channels a stage, STAGES
+# stages in flight.
+W_SEGMENT = 64
+PIXELS = 4
+DISPS = 8
+CHUNK = 32
+STAGES = 2
+MAX_D_TILE = 64
+
+
+def d_cover(d: int, multiple: int) -> Tuple[int, int]:
+    """(D tile, D tiles) covering ``d`` disparities: the fewest tiles of at
+    most MAX_D_TILE, each ceil(d / tiles) rounded up to ``multiple``."""
+    tiles = -(-d // MAX_D_TILE)
+    per_tile = -(-d // tiles)
+    td = -(-per_tile // multiple) * multiple
+    return td, -(-d // td)
+
+
+def tile_plan(w: int, c: int, d: int) -> dict:
+    """The correlation kernel's blocking for a (W, C) row and D disparities:
+    the W segments, the register tile, the D cover (tile, tiles; D = 48 is
+    one tile of six 8-disparity groups, no idle lane), the threads a block,
+    the right-view window a block stages, and the channel chunks."""
+    td, nd = d_cover(d, DISPS)
+    return {
+        "w_segment": W_SEGMENT,
+        "w_segments": -(-w // W_SEGMENT),
+        "register_tile": (PIXELS, DISPS),
+        "d_tile": td,
+        "d_tiles": nd,
+        "threads": (W_SEGMENT // PIXELS) * (td // DISPS),
+        "window": W_SEGMENT + td - 1,
+        "chunk": CHUNK,
+        "chunks": -(-c // CHUNK),
+        "stages": STAGES,
+    }
+
+
+def batch_stride(t: torch.Tensor, name: str) -> int:
+    """The batch stride, in elements, of a (B, H, W, C) view that the
+    correlation kernels read row by row: C stride 1, W stride C, H stride
+    W*C (the stride of an axis of size 1 does not matter). Raises for any
+    other layout."""
+    b, h, w, c = t.shape
+    _, sh, sw, sc = t.stride()
+    if (c > 1 and sc != 1) or (w > 1 and sw != c) or (h > 1 and sh != w * c):
+        raise ValueError(
+            f"{name} kernel reads (W, C) rows with C stride 1, W stride C and H "
+            f"stride W*C; got strides {t.stride()} for shape {tuple(t.shape)}"
+        )
+    return t.stride(0) if b > 1 else h * w * c
 
 
 def _check(f_left: torch.Tensor, f_right: torch.Tensor, max_disp: int) -> None:
@@ -56,8 +115,9 @@ def correlation(
     f_left: torch.Tensor, f_right: torch.Tensor, max_disp: int
 ) -> torch.Tensor:
     """The correlation kernel on a CUDA tensor, its plain version on a CPU
-    one. On CUDA both inputs must be contiguous, on one device, of one
-    dtype (float32 or bfloat16); anything else raises."""
+    one. On CUDA both inputs must be on one device, of one dtype (float32
+    or bfloat16), with rows :func:`batch_stride` reads; anything else
+    raises."""
     if f_left.device.type == "cpu":
         return correlation_plain(f_left, f_right, max_disp)
     if f_left.device.type != "cuda":
@@ -67,15 +127,15 @@ def correlation(
         raise ValueError(f"f_right is on {f_right.device}, f_left on {f_left.device}")
     if f_left.dtype not in _DTYPES:
         raise TypeError(f"correlation kernel takes float32 or bfloat16, not {f_left.dtype}")
-    if not (f_left.is_contiguous() and f_right.is_contiguous()):
-        raise ValueError("correlation kernel needs contiguous inputs")
+    sbl = batch_stride(f_left, "correlation")
+    sbr = batch_stride(f_right, "correlation")
     b, h, w, c = f_left.shape
     out = torch.empty((b, h, w, max_disp), dtype=f_left.dtype, device=f_left.device)
     if out.numel() == 0:
         return out
     err = _build.lib().sde_correlation(
-        f_left.data_ptr(), f_right.data_ptr(), out.data_ptr(),
-        b * h, w, c, max_disp, _DTYPES[f_left.dtype],
+        f_left.data_ptr(), sbl, f_right.data_ptr(), sbr, out.data_ptr(),
+        b, h, w, c, max_disp, d_cover(max_disp, DISPS)[0], _DTYPES[f_left.dtype],
         f_left.device.index, _build.stream_of(f_left),
     )
     _build.check(err, "correlation")

@@ -11,7 +11,9 @@ correlation_v2.py::correlation_pallas_v2`` and ``correlation_v3.py::
 correlation_pallas_v3``, and of the XLA form the JAX package serves bf16
 with, ``ops/correlation.py::_correlation_gram``. :func:`correlation_gram`
 launches the kernel for a CUDA tensor and takes
-:func:`correlation_gram_plain` for a CPU tensor.
+:func:`correlation_gram_plain` for a CPU tensor. Both take the halves of
+the stereo tower's interleaved (2B, H, W, C) output as they are: views
+with contiguous (W, C) rows and a batch stride of 2*H*W*C.
 """
 
 from __future__ import annotations
@@ -20,10 +22,47 @@ import torch
 import torch.nn.functional as F
 
 from scenedepthestimation_tpu_torch.ops.cuda import _build
-from scenedepthestimation_tpu_torch.ops.cuda.correlation import _check
+from scenedepthestimation_tpu_torch.ops.cuda.correlation import (
+    MAX_D_TILE,
+    _check,
+    batch_stride,
+    d_cover,
+)
 
-# W tile of the Gram, as the JAX package's _GRAM_T and the kernel's kT.
+# W tile of the plain version's Gram, as the JAX package's _GRAM_T.
 GRAM_T = 64
+
+# The kernel's blocking (csrc/correlation_gram.cu): units of a W_TILE-wide
+# W tile and a D tile (all of D up to MAX_D_TILE, else tiles of a multiple
+# of 8); a warp an m16 row tile of the W tile against the n8 tiles of its
+# band; K_CHUNK channels a stage, STAGES stages in the ring.
+W_TILE = 96
+K_CHUNK = 64
+STAGES = 3
+
+
+def tile_plan(w: int, c: int, d: int) -> dict:
+    """The banded-Gram kernel's blocking for a (W, C) row and D
+    disparities: the W tiles, the D cover (tile, tiles), the right-view
+    window a unit stages (the W_TILE + TD - 1 columns its band reads), the
+    n8 tiles a warp runs over it (covering 16 + TD - 1 window columns,
+    rounded up to a pair for ldmatrix), whether a unit's output is one
+    contiguous run (all of D in one tile), and the channel chunks and
+    stages."""
+    td, nd = (d, 1) if d <= MAX_D_TILE else d_cover(d, 8)
+    n8 = -(-(td + 15) // 8)
+    return {
+        "w_tile": W_TILE,
+        "w_tiles": -(-w // W_TILE),
+        "d_tile": td,
+        "d_tiles": nd,
+        "window": W_TILE + td - 1,
+        "n8_tiles": n8 + n8 % 2,
+        "flat_out": nd == 1,
+        "k_chunk": K_CHUNK,
+        "k_chunks": -(-c // K_CHUNK),
+        "stages": STAGES,
+    }
 
 
 def correlation_gram_plain(
@@ -58,8 +97,9 @@ def correlation_gram(
     f_left: torch.Tensor, f_right: torch.Tensor, max_disp: int
 ) -> torch.Tensor:
     """The banded-Gram kernel on a CUDA tensor, its plain version on a CPU
-    one. On CUDA both inputs must be contiguous bfloat16 on one device;
-    anything else raises (float32 features take the correlation kernel)."""
+    one. On CUDA both inputs must be bfloat16 on one device, with rows
+    ``correlation.batch_stride`` reads; anything else raises (float32
+    features take the correlation kernel)."""
     if f_left.device.type == "cpu":
         return correlation_gram_plain(f_left, f_right, max_disp)
     if f_left.device.type != "cuda":
@@ -69,15 +109,16 @@ def correlation_gram(
         raise ValueError(f"f_right is on {f_right.device}, f_left on {f_left.device}")
     if f_left.dtype != torch.bfloat16:
         raise TypeError(f"correlation_gram kernel takes bfloat16, not {f_left.dtype}")
-    if not (f_left.is_contiguous() and f_right.is_contiguous()):
-        raise ValueError("correlation_gram kernel needs contiguous inputs")
+    sbl = batch_stride(f_left, "correlation_gram")
+    sbr = batch_stride(f_right, "correlation_gram")
     b, h, w, c = f_left.shape
     out = torch.empty((b, h, w, max_disp), dtype=f_left.dtype, device=f_left.device)
     if out.numel() == 0:
         return out
+    td = tile_plan(w, c, max_disp)["d_tile"]
     err = _build.lib().sde_correlation_gram(
-        f_left.data_ptr(), f_right.data_ptr(), out.data_ptr(),
-        b * h, w, c, max_disp, f_left.device.index, _build.stream_of(f_left),
+        f_left.data_ptr(), sbl, f_right.data_ptr(), sbr, out.data_ptr(),
+        b, h, w, c, max_disp, td, f_left.device.index, _build.stream_of(f_left),
     )
     _build.check(err, "correlation_gram")
     _build.LAUNCHES["correlation_gram"] += 1

@@ -21,6 +21,7 @@ from scenedepthestimation_tpu.ops.pallas.soft_argmin import soft_argmin_pallas
 from scenedepthestimation_tpu.ops.soft_argmin import _soft_argmin_jnp
 from scenedepthestimation_tpu_torch.ops import correlation as port_corr
 from scenedepthestimation_tpu_torch.ops import soft_argmin as port_sa
+from scenedepthestimation_tpu_torch.models import stereo as port_stereo
 from scenedepthestimation_tpu_torch.ops import upsample as port_up
 from scenedepthestimation_tpu_torch.ops.cuda import _build
 from scenedepthestimation_tpu_torch.ops.cuda import correlation as corr_kernel
@@ -207,6 +208,261 @@ def test_correlation1d_dispatches_on_dtype(monkeypatch):
     assert calls == ["correlation_gram_plain", "correlation_plain"]
     assert got16.dtype == torch.bfloat16 and got32.dtype == torch.float32
     assert torch.equal(got16, gram_kernel.correlation_gram(fl.bfloat16(), fr.bfloat16(), 8))
+    assert not _build.LAUNCHES
+
+
+def _staged(rows: np.ndarray, col0: int, ncols: int, cpad: int) -> np.ndarray:
+    """A kernel's shared-memory window: columns [col0, col0 + ncols) of one
+    row's (W, C) features, channels padded to ``cpad``, zeros outside
+    [0, W) and past C."""
+    w, c = rows.shape
+    out = np.zeros((ncols, cpad), np.float32)
+    lo, hi = max(col0, 0), min(col0 + ncols, w)
+    if hi > lo:
+        out[lo - col0 : hi - col0, :c] = rows[lo:hi]
+    return out
+
+
+def _bf16_round(x: np.ndarray) -> np.ndarray:
+    return _np(torch.from_numpy(np.ascontiguousarray(x, np.float32)).bfloat16().float())
+
+
+def _gram_blocking(fl: np.ndarray, fr: np.ndarray, d: int, round_bf16: bool) -> np.ndarray:
+    """csrc/correlation_gram.cu's blocking in numpy: per (row, W tile, D
+    tile) unit the staged left tile and right window (zeros outside
+    [0, W)), each warp's m16 rows against only the n8 tiles of its band,
+    summed over the K chunks in fp32, the band read out, scaled by 1/C
+    and rounded once; every output value written exactly once."""
+    b, h, w, c = fl.shape
+    plan = gram_kernel.tile_plan(w, c, d)
+    t, td, kc = plan["w_tile"], plan["d_tile"], plan["k_chunk"]
+    cpad = plan["k_chunks"] * kc
+    inv_c = np.float32(1) / np.float32(c)
+    out = np.zeros((b, h, w, d), np.float32)
+    written = np.zeros((b, h, w, d), np.int64)
+    for bi in range(b):
+        for hi in range(h):
+            for wt in range(plan["w_tiles"]):
+                x0 = wt * t
+                for dt in range(plan["d_tiles"]):
+                    d0 = dt * td
+                    tdl = min(td, d - d0)
+                    left = _staged(fl[bi, hi], x0, t, cpad)
+                    win = _staged(fr[bi, hi], x0 - d0 - (td - 1), plan["window"], cpad)
+                    for i in range(t // 16):
+                        u = np.arange(16)[:, None]
+                        dl = np.arange(tdl)[None, :]
+                        j = 16 * i + u + td - 1 - dl  # window column of (u, dl)
+                        cols = np.arange(16 * i, min(16 * i + 8 * plan["n8_tiles"], plan["window"]))
+                        assert j.min() >= cols[0] and j.max() <= cols[-1]
+                        g = np.zeros((16, len(cols)), np.float32)
+                        for k0 in range(0, cpad, kc):
+                            g += left[16 * i : 16 * i + 16, k0 : k0 + kc] @ win[cols, k0 : k0 + kc].T
+                        band = g[u, j - cols[0]] * inv_c
+                        x = x0 + 16 * i + np.arange(16)
+                        keep = x < w
+                        out[bi, hi, x[keep], d0 : d0 + tdl] = band[keep]
+                        written[bi, hi, x[keep], d0 : d0 + tdl] += 1
+    assert (written == 1).all()
+    return _bf16_round(out) if round_bf16 else out
+
+
+def _corr_blocking(fl: np.ndarray, fr: np.ndarray, d: int) -> np.ndarray:
+    """csrc/correlation.cu's blocking in numpy: per (row, W segment, D
+    tile) block the staged left segment and right window (zeros outside
+    [0, W)), each thread (p, q) its PIXELS x DISPS register tile from its
+    PIXELS left columns and the PIXELS + DISPS - 1 right columns it
+    shears over, summed over the channel chunks in fp32, scaled by 1/C;
+    every output value written exactly once."""
+    b, h, w, c = fl.shape
+    plan = corr_kernel.tile_plan(w, c, d)
+    tw, td = plan["w_segment"], plan["d_tile"]
+    px, dx = plan["register_tile"]
+    kc = plan["chunk"]
+    cpad = plan["chunks"] * kc
+    npg, nq = tw // px, td // dx
+    assert plan["threads"] == npg * nq and plan["threads"] <= 128
+    p = np.arange(npg)[:, None, None, None]
+    q = np.arange(nq)[None, :, None, None]
+    i = np.arange(px)[None, None, :, None]
+    j = np.arange(dx)[None, None, None, :]
+    jb = px * p - dx * q + td - dx  # the thread's first right column
+    rcol = jb + (i - j + dx - 1)  # right column of (pixel i, disparity j)
+    assert rcol.min() >= 0 and rcol.max() < plan["window"]
+    lcol = (px * p + i) + 0 * j
+    inv_c = np.float32(1) / np.float32(c)
+    out = np.zeros((b, h, w, d), np.float32)
+    written = np.zeros((b, h, w, d), np.int64)
+    for bi in range(b):
+        for hi in range(h):
+            for seg in range(plan["w_segments"]):
+                w0 = seg * tw
+                for dt in range(plan["d_tiles"]):
+                    d0 = dt * td
+                    left = _staged(fl[bi, hi], w0, tw, cpad)
+                    right = _staged(fr[bi, hi], w0 - d0 - (td - 1), plan["window"], cpad)
+                    acc = np.zeros(np.broadcast(lcol, rcol).shape, np.float32)
+                    for k0 in range(0, cpad, kc):
+                        acc += (left[lcol, k0 : k0 + kc] * right[rcol, k0 : k0 + kc]).sum(-1)
+                    x = np.broadcast_to(w0 + px * p + i, acc.shape)
+                    dd = np.broadcast_to(d0 + dx * q + j, acc.shape)
+                    keep = (x < w) & (dd < d)
+                    out[bi, hi, x[keep], dd[keep]] = acc[keep] * inv_c
+                    written[bi, hi, x[keep], dd[keep]] += 1
+    assert (written == 1).all()
+    return out
+
+
+# (B, H, W, C, D) for the kernels' blocking: W = 8, 37, 70, 130 and 288 (below
+# one tile, ragged, three whole 96-wide tiles); D = 1, 12, 24, 48, 64, 70 and
+# 100 (70 and 100: two D tiles), D > W; C = 5, 16, 24, 64 and 128; odd B*H.
+BLOCKING_CASES = [
+    (1, 3, 8, 16, 12),
+    (1, 3, 37, 5, 70),
+    (2, 1, 70, 24, 24),
+    (1, 1, 130, 64, 100),
+    (1, 1, 288, 64, 48),
+    (1, 1, 288, 128, 1),
+    (1, 3, 37, 16, 64),
+    (3, 1, 70, 128, 48),
+]
+
+
+@pytest.mark.parametrize("shape", BLOCKING_CASES, ids=lambda s: "x".join(map(str, s)))
+def test_correlation_gram_blocking_matches_plain_and_pallas(shape):
+    """The Gram kernel's blocking (numpy model) on bf16 features vs the
+    plain version, _correlation_gram and the TPU kernels 8 (v3) and 7 (v2)
+    in interpret mode, each within one bf16 spacing + 1e-6 (two against
+    _correlation_gram where C is not a power of two, as in the plain
+    version's test); in fp32, without the rounding, vs the JAX oracle at
+    atol 1e-5."""
+    b, h, w, c, d = shape
+    rng = np.random.default_rng(sum(shape) + 7)
+    fl = _bf16_round(_normal(rng, (b, h, w, c)))
+    fr = _bf16_round(_normal(rng, (b, h, w, c)))
+    got = _gram_blocking(fl, fr, d, round_bf16=True)
+    plain = gram_kernel.correlation_gram_plain(
+        torch.from_numpy(fl).bfloat16(), torch.from_numpy(fr).bfloat16(), d
+    )
+    jl, jr = jnp.asarray(fl, jnp.bfloat16), jnp.asarray(fr, jnp.bfloat16)
+    spacings = 1 if c & (c - 1) == 0 else 2
+    for name, want, n in (
+        ("plain", _np(plain.float()), 1),
+        ("_correlation_gram", _correlation_gram(jl, jr, d), spacings),
+        ("v3", correlation_pallas_v3(jl, jr, d, interpret=True), 1),
+        ("v2", correlation_pallas_v2(jl, jr, d, interpret=True), 1),
+    ):
+        want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+        bound = n * _bf16_spacing(want) + 1e-6
+        assert (np.abs(got - want) <= bound).all(), (name, np.abs(got - want).max())
+    got32 = _gram_blocking(fl, fr, d, round_bf16=False)
+    oracle = _correlation_jnp(jnp.asarray(fl), jnp.asarray(fr), d)
+    np.testing.assert_allclose(got32, np.asarray(oracle), atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", BLOCKING_CASES, ids=lambda s: "x".join(map(str, s)))
+def test_correlation_blocking_matches_plain_and_pallas(shape):
+    """The fp32 correlation kernel's blocking (numpy model: segments,
+    register tiles, D cover) vs its plain version and the TPU kernel in
+    interpret mode, atol 1e-6 as the correlation1d test."""
+    b, h, w, c, d = shape
+    rng = np.random.default_rng(sum(shape) + 8)
+    fl, fr = _normal(rng, (b, h, w, c)), _normal(rng, (b, h, w, c))
+    got = _corr_blocking(fl, fr, d)
+    plain = corr_kernel.correlation_plain(torch.from_numpy(fl), torch.from_numpy(fr), d)
+    np.testing.assert_allclose(got, _np(plain), atol=1e-6)
+    want = correlation_pallas(jnp.asarray(fl), jnp.asarray(fr), d, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "w,c,d,want",
+    [
+        (288, 64, 48, dict(w_tiles=3, d_tile=48, d_tiles=1, window=143, n8_tiles=8, flat_out=True,
+                           k_chunks=1)),
+        (288, 128, 48, dict(w_tiles=3, d_tile=48, d_tiles=1, window=143, n8_tiles=8, k_chunks=2)),
+        (288, 64, 24, dict(w_tiles=3, d_tile=24, d_tiles=1, window=119, n8_tiles=6)),
+        (37, 5, 1, dict(w_tiles=1, d_tile=1, d_tiles=1, window=96, n8_tiles=2, k_chunks=1)),
+        (130, 16, 100, dict(w_tiles=2, d_tile=56, d_tiles=2, window=151, n8_tiles=10,
+                            flat_out=False)),
+        (8, 16, 70, dict(w_tiles=1, d_tile=40, d_tiles=2, n8_tiles=8, flat_out=False)),
+    ],
+    ids=["config5", "c128", "d96", "d1", "d100", "d70"],
+)
+def test_correlation_gram_tile_plan(w, c, d, want):
+    """The Gram kernel's plan: 96-wide W tiles (three whole ones at the
+    bf16 presets' W = 288), all of D <= 64 in one unit whose output is one
+    contiguous run, D > 64 in tiles of a multiple of 8, a window of the
+    96 + TD - 1 columns the band reads, n8 tiles (a pair for ldmatrix)
+    covering 16 + TD - 1 columns, 64-channel chunks, 3 stages."""
+    plan = gram_kernel.tile_plan(w, c, d)
+    assert {k: plan[k] for k in want} == want
+    assert plan["stages"] == 3 and plan["d_tile"] * plan["d_tiles"] >= d
+    assert 8 * plan["n8_tiles"] >= 16 + plan["d_tile"] - 1
+
+
+@pytest.mark.parametrize(
+    "w,c,d,want",
+    [
+        (128, 64, 48, dict(w_segments=2, d_tile=48, d_tiles=1, threads=96, window=111, chunks=2)),
+        (288, 128, 48, dict(w_segments=5, d_tile=48, threads=96, chunks=4)),
+        (37, 24, 12, dict(w_segments=1, d_tile=16, d_tiles=1, threads=32)),
+        (37, 16, 1, dict(d_tile=8, d_tiles=1, threads=16)),
+        (130, 16, 100, dict(w_segments=3, d_tile=56, d_tiles=2, threads=112)),
+        (70, 64, 64, dict(d_tile=64, d_tiles=1, threads=128, window=127)),
+    ],
+    ids=["config4", "c128", "d12", "d1", "d100", "d64"],
+)
+def test_correlation_tile_plan(w, c, d, want):
+    """The fp32 kernel's plan: 64-column W segments (config 4's 256 rows
+    give 512 blocks, about 4 an SM of an H100), a 4 x 8 register tile, D
+    in one tile of whole 8-disparity groups up to 64 (D = 48: six groups,
+    no idle lane), the window of 64 + TD - 1 columns staged once for all
+    of the tile's D, 32-channel chunks in 2 stages."""
+    plan = corr_kernel.tile_plan(w, c, d)
+    assert {k: plan[k] for k in want} == want
+    assert plan["register_tile"] == (4, 8) and plan["stages"] == 2
+    assert plan["d_tile"] % 8 == 0 and plan["d_tile"] * plan["d_tiles"] >= d
+
+
+def test_split_pair_returns_views():
+    """split_pair hands out views of the tower's interleaved output, which
+    the kernels read in place: the batch stride doubles, the rows stay
+    contiguous, and batch_stride accepts them and refuses other layouts."""
+    b, h, w, c = 3, 4, 10, 8
+    feats = torch.from_numpy(_normal(np.random.default_rng(9), (2 * b, h, w, c)))
+    f_l, f_r = port_stereo.split_pair(feats)
+    assert f_l.data_ptr() == feats.data_ptr()
+    assert f_r.data_ptr() == feats.data_ptr() + h * w * c * feats.element_size()
+    assert f_l.stride() == f_r.stride() == (2 * h * w * c, w * c, c, 1)
+    assert torch.equal(f_l, feats[0::2]) and torch.equal(f_r, feats[1::2])
+    assert corr_kernel.batch_stride(f_l, "correlation") == 2 * h * w * c
+    assert corr_kernel.batch_stride(f_l[:1], "correlation") == h * w * c
+    for bad in (f_l.transpose(2, 3), f_l[:, :, :5], f_l[..., :4]):
+        with pytest.raises(ValueError, match="reads \\(W, C\\) rows"):
+            corr_kernel.batch_stride(bad, "correlation")
+
+
+@pytest.mark.parametrize(
+    "fn,dtype",
+    [
+        (corr_kernel.correlation, torch.float32),
+        (corr_kernel.correlation, torch.bfloat16),
+        (gram_kernel.correlation_gram, torch.bfloat16),
+    ],
+    ids=["correlation-fp32", "correlation-bf16", "correlation_gram"],
+)
+def test_correlation_wrappers_read_interleaved_views_exactly(fn, dtype):
+    """On the CPU each wrapper gives the interleaved views of the tower's
+    output exactly the answer it gives their contiguous copies, and
+    launches nothing."""
+    feats = torch.from_numpy(_normal(np.random.default_rng(10), (6, 3, 37, 24))).to(dtype)
+    f_l, f_r = port_stereo.split_pair(feats)
+    assert not f_l.is_contiguous()
+    _build.LAUNCHES.clear()
+    got = fn(f_l, f_r, 12)
+    assert torch.equal(got, fn(f_l.contiguous(), f_r.contiguous(), 12))
+    assert got.dtype == dtype and tuple(got.shape) == (3, 3, 37, 12)
     assert not _build.LAUNCHES
 
 
