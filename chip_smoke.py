@@ -190,14 +190,17 @@ Phases, one line each (more for the per-shape kernel checks):
      a profile of each mode's step (kernel time by class, aten::copy_
      calls);
  21. (run before 19, after 20) mono training at mono_kitti_192x640_fp32:
-     conv3x3's backward kernels (conv3x3_dx, conv3x3_dw and its reduce) at
+     conv3x3's backward kernels (conv3x3_dpre; conv3x3_dx: the slab of the
+     flipped weight, the interior on conv3x3_f32_kernel or, for the heads,
+     conv3x3_dx_head_kernel, the border fold; conv3x3_dw and its reduce;
+     the slab and dpre also bit for bit against their plain versions) at
      the 14 decoder shapes at b12 (10 ELU convs, 4 sigmoid heads; reflect)
      and at off-path shapes (edge and zero borders, 1- and 2-pixel axes,
      Cin and Cout off 4, 8 and 16, Cout = 1) against their plain version
      (dx, db atol 1e-5 x max|ref|, dW 1e-4 x; + rtol 1e-5), each kernel's
      and the plain version's error against a float64 run, two calls equal
-     bit for bit; dx's and dW's time by call, device and kernel time,
-     bound, the plain version's and cuDNN's convolution_backward for the
+     bit for bit; dx's and dW's time by call, device and kernel time (each
+     in a profiler window of its own), bound, the plain version's and cuDNN's convolution_backward for the
      same gradient; ptxas's lines; upsample_concat_bwd at the decoder's 4
      joins at b12 (exact, timed); one supervised and one self-supervised
      step at b12 against the card's plain path (kernels swapped for their
@@ -243,6 +246,12 @@ aten::copy_ calls on a view's feature shape); one JSON line.
 
 times only the first of those, config 1's b1 ms/frame (median, p90, mean;
 a process of about 10 s); one JSON line.
+
+    python3 chip_smoke.py --measure-train [ROOT] [ITERS]
+
+times config 1's training under ROOT: run_train_bench at b12 and b1,
+supervised and self-supervised, ITERS steps each (default 10, as phase 21
+takes them), TF32 off; one JSON line.
 """
 
 from __future__ import annotations
@@ -1200,11 +1209,11 @@ def _profile_stats(forward, n: int = 3, record_shapes: bool = False) -> dict:
     forward()
     torch.cuda.synchronize()
     # Now and then a window comes back without device events (seen in probe
-    # calls and in full runs on an NVIDIA H100); it is measured again, up to
-    # six times, half a second apart.
-    for attempt in range(6):
+    # calls and in full runs on an NVIDIA H100, once six times in a row); it
+    # is measured again, up to twelve times, waiting longer each time.
+    for attempt in range(12):
         if attempt:
-            time.sleep(0.5)
+            time.sleep(0.5 * attempt)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      record_shapes=record_shapes) as prof:
             for _ in range(n):
@@ -3528,7 +3537,7 @@ def _cli_lines(cli, *argv) -> list:
 def _train_kernel_class(name: str) -> str:
     n = name.lower()
     if any(k in n for k in ("correlation_bwd", "soft_argmin_bwd", "upsample_concat_bwd",
-                            "conv3x3_dx", "conv3x3_dw")):
+                            "conv3x3_dpre", "conv3x3_dx", "conv3x3_dw")):
         return "backward kernels"
     if any(k in n for k in ("correlation_kernel", "soft_argmin", "upsample_concat_kernel",
                             "conv3x3", "arrange")):
@@ -3807,19 +3816,23 @@ MONO_BWD_SHAPES = CONV_SHAPES[:-1] + [
     (f"dispconv_{s}", 192 >> s, 640 >> s, c, 1, "sigmoid", torch.float32)
     for s, c in ((3, 128), (2, 64), (1, 32), (0, 16))]
 # (B, H, W, Cin, Cout, activation, border) off the path: the edge and zero
-# borders, 1- and 2-pixel axes, Cin and Cout off 4, 8 and 16, Cout = 1.
+# borders, 1- and 2-pixel axes, Cin and Cout off 4, 8 and 16, Cout = 1, Cin
+# = 1 (the input gradient's interior on the forward's head kernel).
 MONO_BWD_EXTRA = [(2, 1, 7, 5, 3, "elu", "reflect"), (1, 2, 9, 12, 7, "elu", "reflect"),
                   (3, 5, 1, 4, 9, "elu", "edge"), (2, 6, 2, 20, 1, "sigmoid", "zero"),
                   (1, 1, 1, 3, 3, "elu", "reflect"), (2, 9, 33, 40, 24, "elu", "zero"),
                   (2, 17, 19, 96, 1, "sigmoid", "edge"), (1, 13, 70, 70, 36, "none", "reflect"),
-                  (4, 24, 80, 128, 64, "elu", "edge"), (4, 48, 160, 64, 32, "elu", "zero")]
+                  (4, 24, 80, 128, 64, "elu", "edge"), (4, 48, 160, 64, 32, "elu", "zero"),
+                  (2, 5, 6, 1, 4, "elu", "reflect"), (1, 3, 4, 1, 1, "sigmoid", "edge")]
 # conv3x3's backward against its plain version (cuDNN's, TF32 off): dx and
 # db atol 1e-5 x max|ref| + rtol 1e-5; dW, a sum over B*H*W pixels (1.47 M
 # at the last level at b12), atol 1e-4 x max|ref| + rtol 1e-5.
 MONO_BWD_ATOL = {"dx": 1e-5, "dw": 1e-4, "db": 1e-5}
 # One config-1 step: each kernel's launches (the 10 weight slabs made by a
-# fresh state included).
-MONO_LAUNCHES = {"conv3x3": 14, "conv3x3_slab": 10, "conv3x3_dx": 14, "conv3x3_dw": 14,
+# fresh state included; each of the 14 backward calls makes dpre, the slab of
+# w', dx's interior and its fold, and dW).
+MONO_LAUNCHES = {"conv3x3": 14, "conv3x3_slab": 10, "conv3x3_dpre": 14, "conv3x3_dx_slab": 14,
+                 "conv3x3_dx": 14, "conv3x3_dx_fold": 14, "conv3x3_dw": 14,
                  "upsample_concat": 4, "upsample_concat_bwd": 4}
 # A config-1 step on the kernel path against the card's plain path and
 # against the CPU (PyTorch's own CPU convolutions): loss rtol, gradient atol
@@ -3895,31 +3908,28 @@ def _mono_bwd_case(conv_block, args):
 
 
 def _mono_bwd_timing(conv_block, _build, args, r: dict) -> str:
-    """Times dx and dW apart at one shape: each kernel's call (the raw entry
-    point), its device time, its kernel time and launches, the plain
-    version's (autograd of the plain forward for that input alone) and
-    cuDNN's (convolution_backward on the pre-padded input, TF32 off, that
-    gradient alone); adds them and the bound to r["dx"], r["dw"]."""
+    """Times dx and dW apart at one shape: dx the dpre pass, the slab of w',
+    the interior and the fold (conv3x3_dpre then conv3x3_dx), dW its kernel
+    and reduce on that dpre (conv3x3_dw). Each: its call, its device time,
+    its kernel time and launches in a profiler window of its own (dx's
+    interior runs conv3x3_f32_kernel, so kernel names would not tell the
+    two apart from each other or from a forward), the plain version's
+    (autograd of the plain forward for that input alone) and cuDNN's
+    (convolution_backward on the pre-padded input, TF32 off, that gradient
+    alone); adds them and the bound to r["dx"], r["dw"]."""
     g, out, x, wt, act, border = args
     b, h, w, cin = x.shape
     cout = wt.shape[0]
-    lib, dev, stream = _build.lib(), x.device.index, _build.stream_of(x)
-    a_code, b_code = conv_block.ACTIVATIONS[act], conv_block.BORDERS[border]
-    dx = torch.empty_like(x)
-    dw = torch.empty_like(wt)
-    db = torch.empty((cout,), device="cuda")
-    ws = torch.empty((conv_block.bwd_plan(b, h, w, cin, cout, dev)[1],), device="cuda")
+    dpre = torch.empty_like(g)
 
     def run_dx():
-        lib.sde_conv3x3_bwd_dx(g.data_ptr(), out.data_ptr(), wt.data_ptr(), dx.data_ptr(), b, h,
-                               w, cin, cout, a_code, b_code, dev, stream)
+        conv_block.conv3x3_dx(conv_block.conv3x3_dpre(g, out, act, dpre), wt, border)
 
     def run_dw():
-        lib.sde_conv3x3_bwd_dw(g.data_ptr(), out.data_ptr(), x.data_ptr(), dw.data_ptr(),
-                               db.data_ptr(), ws.data_ptr(), ws.numel(), b, h, w, cin, cout,
-                               a_code, b_code, dev, stream)
+        conv_block.conv3x3_dw(dpre, x, border)
 
-    dpre = (g * conv_block._activation_grad(out, act)).permute(0, 3, 1, 2)
+    run_dx()
+    dpre_n = (g * conv_block._activation_grad(out, act)).permute(0, 3, 1, 2)
     xl = x.detach().clone().requires_grad_()
     wl = wt.detach().clone().requires_grad_()
     y = conv_block._conv_nchw(xl, wl, None, border)
@@ -3932,32 +3942,35 @@ def _mono_bwd_timing(conv_block, _build, args, r: dict) -> str:
 
     def cudnn(mask):
         return lambda: torch.ops.aten.convolution_backward(
-            dpre, xp, wt, [cout], [1, 1], [0, 0], [1, 1], False, [0, 0], 1, mask)
+            dpre_n, xp, wt, [cout], [1, 1], [0, 0], [1, 1], False, [0, 0], 1, mask)
 
-    plain = {"dx": lambda: torch.autograd.grad(y, xl, dpre, retain_graph=True),
-             "dw": lambda: (torch.autograd.grad(y, wl, dpre, retain_graph=True), dpre.sum())}
+    plain = {"dx": lambda: torch.autograd.grad(y, xl, dpre_n, retain_graph=True),
+             "dw": lambda: (torch.autograd.grad(y, wl, dpre_n, retain_graph=True),
+                            dpre_n.sum())}
     ops = 2.0 * b * h * w * cin * cout * 9
-    moved = {"dx": nbytes(g, out, wt, dx), "dw": nbytes(g, out, x, dw, db)}
-    # Kernel time a call: one profiler window over dx then dW, each kernel's
-    # mean over the window summed over the call's kernels (dW's partial sums
-    # and their reduce), so an event the profiler drops changes no sum. A
-    # window without device events (after the profiler's retries) leaves the
-    # kernel times unmeasured; the other times stand.
-    by_name = _profile_stats(lambda: (run_dx(), run_dw()), 10)["by_name"]
-    wanted = {"dx": (("conv3x3_dx_kernel",),),
-              "dw": (("conv3x3_dw_kernel", "conv3x3_dw_head_kernel"),
-                     ("conv3x3_dw_reduce_kernel",))}
-    check(not by_name or all(any(w in k for w in alts for k in by_name)
-                             for want in wanted.values() for alts in want),
-          f"conv3x3 backward: the window's kernels {list(by_name)}")
+    moved = {"dx": nbytes(g, out, wt, x), "dw": nbytes(g, out, x, wt) + 4 * cout}
+    interior = "conv3x3_dx_head_kernel" if cout == 1 else (
+        "conv3x3_head_kernel" if cin == 1 else "conv3x3_f32_kernel")
+    wanted = {"dx": ["conv3x3_dpre_kernel", "conv3x3_dx_slab_kernel", interior]
+              + (["conv3x3_dx_fold_kernel"] if border != "zero" else []),
+              "dw": ["conv3x3_dw_kernel", "conv3x3_dw_reduce_kernel"]}
     text = []
     for name, fn, mask in (("dx", run_dx, [True, False, False]),
                            ("dw", run_dw, [False, True, True])):
+        # Kernel time a call: each kernel's mean over its window, summed over
+        # the call's kernels, so an event the profiler drops changes no sum.
+        # A window without device events (after the profiler's retries)
+        # leaves the kernel time unmeasured; the other times stand.
+        by_name = _profile_stats(fn, 10)["by_name"]
+        check(not by_name or (all(any(k in n for n in by_name) for k in wanted[name])
+                              and all(any(k in n for k in wanted[name]) for n in by_name)),
+              f"conv3x3 backward {name}: the window's kernels {list(by_name)}")
+        kernel_ms = sum(us / n for us, n in by_name.values()) / 1e3 if by_name else None
+        split = ", ".join(f"{k.replace('conv3x3_', '').replace('_kernel', '')} "
+                          f"{sum(us / n for m, (us, n) in by_name.items() if k in m) / 1e3:.4f}"
+                          for k in wanted[name])
         t = {"ms": time_ms(fn), "device_ms": _queued_ms(fn), "plain_ms": time_ms(plain[name]),
              "library_ms": time_ms(cudnn(mask))}
-        mine = [v for k, v in by_name.items()
-                if any(w in k for alts in wanted[name] for w in alts)]
-        kernel_ms = sum(us / n for us, n in mine) / 1e3 if by_name else None
         rr = r.setdefault(name, {"err": 0.0, "kernel_ms": 0.0})
         for k, v in t.items():
             rr[k] = rr.get(k, 0.0) + v
@@ -3969,7 +3982,8 @@ def _mono_bwd_timing(conv_block, _build, args, r: dict) -> str:
         bound, by = bound_ms(moved[name], ops, "fp32")
         ktext = ("kernel time not measured (the profiler's window had no device events)"
                  if kernel_ms is None else
-                 f"{kernel_ms:.4f} kernel ({100 * bound / kernel_ms:.1f}% of the bound)")
+                 f"{kernel_ms:.4f} kernel ({split}; {100 * bound / kernel_ms:.1f}% of the "
+                 f"bound, {kernel_ms / t['library_ms']:.2f} x cuDNN)")
         text.append(f"{name} {t['ms']:.4f} ms by call, {t['device_ms']:.4f} device, {ktext}, "
                     f"bound {bound:.4f} ({by}), plain {t['plain_ms']:.4f}, cuDNN "
                     f"{t['library_ms']:.4f}")
@@ -4101,35 +4115,34 @@ def _interrupted_cli(cli, argv, log_file, at_step: int) -> list:
         t.join()
 
 
-def phase_mono_training(sdt, _build, conv_block, upcat) -> dict:
-    """Mono training on the card (config 1): conv3x3's backward kernels
-    against their plain version at the 14 decoder shapes at b12 and off
-    them, upsample_concat_bwd at the mono joins; one supervised and one
-    self-supervised step at b12 against the card's plain path and the CPU,
-    and the kept slabs after an update; run_train_bench at b1 and b12 in a
-    fresh process with its busy share, and a profile of each step; the
-    train CLI on synthetic trees (Eigen with an interrupt and a resume and
-    --val-every, crop and resize; the pair mode and NYUv2 at config 2, each
-    with --val-every and a resume), and the final artifact in the
-    Predictor."""
-    import dataclasses
-    import signal
-
-    from scenedepthestimation_tpu_torch import cli, configs, train
-    from scenedepthestimation_tpu_torch.data.synthetic import make_nyu_tree
-    from scenedepthestimation_tpu_torch.ops.preprocess import preprocess
-
-    t_phase = time.perf_counter()
+def phase_conv3x3_backward(conv_block, _build) -> dict:
+    """conv3x3's backward kernels (phase 21's first part): their ptxas
+    lines (no spills), the slab of w' and the dpre pass against their plain
+    versions, then the whole backward against its plain version and a
+    float64 run, bit for bit twice, at config 1's 14 decoder shapes at b12
+    (with dx and dW timed apart) and off them. {"dx": ..., "dw": ...}."""
     log = _nvcc_log(_build)
-    for k in ("conv3x3_dx_kernel", "conv3x3_dw_kernel", "conv3x3_dw_head_kernel",
-              "conv3x3_dw_reduce_kernel"):
+    for k in ("conv3x3_dpre_kernel", "conv3x3_dx_slab_kernel", "conv3x3_dx_head_kernel",
+              "conv3x3_dx_fold_kernel", "conv3x3_dw_kernel", "conv3x3_dw_reduce_kernel"):
         lines = ptxas_lines(log, k)
         print(f"[21 {k} ptxas] " + "; ".join(
             f"{a} {r_} registers, {sp} bytes of spill stores" for a, r_, sp in lines))
         check(lines and all(sp == 0 for _, _, sp in lines), f"{k} spills registers")
 
-    # conv3x3's backward at config 1's 14 decoder shapes at b12, reflect.
     gen = torch.Generator(device="cuda").manual_seed(21)
+    for cin, cout in ((512, 256), (16, 1), (5, 3)):
+        wt = torch.randn((cout, cin, 3, 3), device="cuda", generator=gen)
+        check(torch.equal(conv_block.arrange_dx_slab(wt), conv_block.arrange_dx_slab_plain(wt)),
+              f"the slab of w' ({cout}, {cin}) differs from its plain version")
+    for act in ("elu", "sigmoid", "relu", "none"):
+        g = torch.randn((3, 7, 5, 6), device="cuda", generator=gen)
+        out = torch.rand((3, 7, 5, 6), device="cuda", generator=gen) - 0.5
+        check(torch.equal(conv_block.conv3x3_dpre(g, out, act),
+                          conv_block.conv3x3_dpre_plain(g, out, act)),
+              f"conv3x3_dpre {act} differs from its plain version")
+    print("[21 conv3x3 backward] the slab of w' and dpre equal their plain versions bit for bit")
+
+    # conv3x3's backward at config 1's 14 decoder shapes at b12, reflect.
     res = {}
     for name, h, w, cin, cout, act, _ in MONO_BWD_SHAPES:
         args = _mono_bwd_args(gen, MONO_B, h, w, cin, cout, act, "reflect")
@@ -4156,6 +4169,29 @@ def phase_mono_training(sdt, _build, conv_block, upcat) -> dict:
               f"{n} {res[n]['kernel_ms'] if res[n]['kernel_ms'] is None else round(res[n]['kernel_ms'], 3)}"
               f" ({res[n]['device_ms']:.3f} device; bound {res[n]['bound_ms']:.3f}, plain "
               f"{res[n]['plain_ms']:.3f}, cuDNN {res[n]['library_ms']:.3f})" for n in ("dx", "dw")))
+    return res
+
+
+def phase_mono_training(sdt, _build, conv_block, upcat) -> dict:
+    """Mono training on the card (config 1): conv3x3's backward kernels
+    against their plain version at the 14 decoder shapes at b12 and off
+    them, upsample_concat_bwd at the mono joins; one supervised and one
+    self-supervised step at b12 against the card's plain path and the CPU,
+    and the kept slabs after an update; run_train_bench at b1 and b12 in a
+    fresh process with its busy share, and a profile of each step; the
+    train CLI on synthetic trees (Eigen with an interrupt and a resume and
+    --val-every, crop and resize; the pair mode and NYUv2 at config 2, each
+    with --val-every and a resume), and the final artifact in the
+    Predictor."""
+    import dataclasses
+    import signal
+
+    from scenedepthestimation_tpu_torch import cli, configs, train
+    from scenedepthestimation_tpu_torch.data.synthetic import make_nyu_tree
+    from scenedepthestimation_tpu_torch.ops.preprocess import preprocess
+
+    t_phase = time.perf_counter()
+    res = phase_conv3x3_backward(conv_block, _build)
 
     # upsample_concat_bwd at the mono joins, b12.
     rng = np.random.default_rng(21)
@@ -4462,12 +4498,33 @@ def measure_b1(root: str, frames: int) -> int:
     return 0
 
 
+def measure_train(root: str, iters: int) -> int:
+    """The --measure-train mode: config 1's run_train_bench of the package
+    under root at b12 and b1, both modes; one JSON line."""
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    sys.path.insert(0, os.path.abspath(root))
+    import scenedepthestimation_tpu_torch as sdt
+    from scenedepthestimation_tpu_torch import benchmark
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = [{k: r[k] for k in ("metric", "value", "steps_per_sec", "step_ms", "batch_size")}
+            for b in (MONO_B, 1) for r in (
+                benchmark.run_train_bench(CONFIG, mode=m, batch_size=b, iters=iters)
+                for m in ("supervised", "selfsup"))]
+    print(json.dumps({"package": os.path.dirname(sdt.__file__),
+                      "device": torch.cuda.get_device_name(0), "iters": iters, "rows": rows}))
+    return 0
+
+
 def main() -> int:
-    modes = {"--measure": measure, "--measure-b1": measure_b1}
+    modes = {"--measure": (measure, 200), "--measure-b1": (measure_b1, 200),
+             "--measure-train": (measure_train, 10)}
     if sys.argv[1:2] and sys.argv[1] in modes:
+        fn, default = modes[sys.argv[1]]
         rest = sys.argv[2:]
-        return modes[sys.argv[1]](rest[0] if rest else os.path.dirname(os.path.abspath(__file__)),
-                                  int(rest[1]) if len(rest) > 1 else 200)
+        return fn(rest[0] if rest else os.path.dirname(os.path.abspath(__file__)),
+                  int(rest[1]) if len(rest) > 1 else default)
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     import scenedepthestimation_tpu_torch as sdt
     from scenedepthestimation_tpu_torch import benchmark, serve
@@ -4634,14 +4691,20 @@ def main() -> int:
                        "scenedepthestimation_tpu/ops/pallas/conv_block.py:155 (_fused_bwd, "
                        "jax.vjp of conv3x3_xla: the custom VJP of the kernel at :167)",
                        f"{CONFIG} b{MONO_B} train step, the 14 decoder convs' input gradient "
-                       "(10 ELU ConvBlocks, 4 sigmoid heads), reflect, fp32; plain_ms is "
-                       "autograd of the plain forward for the input alone; library_ms is "
+                       "(10 ELU ConvBlocks, 4 sigmoid heads), reflect, fp32: dpre "
+                       "(conv3x3_dpre_kernel), the slab of the flipped weight "
+                       "(conv3x3_dx_slab_kernel), the interior on conv_block.cu's "
+                       "conv3x3_f32_kernel (the heads on conv3x3_dx_head_kernel), the border "
+                       "fold (conv3x3_dx_fold_kernel); launches counts the interiors; plain_ms "
+                       "is autograd of the plain forward for the input alone; library_ms is "
                        "cuDNN's convolution_backward for the input alone (TF32 off)"),
         "conv3x3_dw": ("scenedepthestimation_tpu_torch/csrc/conv3x3_bwd.cu",
                        "scenedepthestimation_tpu/ops/pallas/conv_block.py:155 (_fused_bwd, "
                        "jax.vjp of conv3x3_xla: the custom VJP of the kernel at :167)",
                        f"{CONFIG} b{MONO_B} train step, the 14 decoder convs' weight and bias "
-                       "gradients (split over the pixels, summed in a second launch), fp32; "
+                       "gradients from dpre (conv3x3_dw_kernel: strips with the input's halo "
+                       "staged once for the 9 taps, split over the pixels, summed in order by "
+                       "conv3x3_dw_reduce_kernel), fp32; "
                        "plain_ms is autograd of the plain forward for the weight and the sum "
                        "for the bias; library_ms is cuDNN's convolution_backward for weight "
                        "and bias (TF32 off)"),

@@ -12,10 +12,12 @@ There is no fallback: a missing ``nvcc``, a failed build or a refused
 launch raises. The wrappers that launch kernels (``conv_block``,
 ``upsample_concat``, ``correlation``, ``correlation_gram``,
 ``soft_argmin``, ``fused_tail``, ``winograd``, and the backward kernels
-``conv3x3_dx``, ``conv3x3_dw``, ``correlation_bwd``, ``soft_argmin_bwd``
-and ``upsample_concat_bwd``) add one to :data:`LAUNCHES` per launch
-(``conv3x3_dw`` one a call, for its two launches: the partial sums and
-their reduce), so a run can show that its main path went through them.
+``conv3x3_dpre``, ``conv3x3_dx_slab``, ``conv3x3_dx``,
+``conv3x3_dx_fold``, ``conv3x3_dw``, ``correlation_bwd``,
+``soft_argmin_bwd`` and ``upsample_concat_bwd``) add one to
+:data:`LAUNCHES` per launch (``conv3x3_dw`` one a call, for its two
+launches: the partial sums and their reduce), so a run can show that its
+main path went through them.
 
 Each kernel is also a registered torch op, ``torch.ops.sde.<name>``
 (:func:`register_op`), whose implementation is the wrapper: a CUDA tensor
@@ -76,13 +78,19 @@ _SIGNATURES = {
     "sde_conv3x3_plan": (_I,) * 7 + (ctypes.POINTER(_L),),
     # w, slab, Cin, Cout, dtype, device, stream
     "sde_conv3x3_arrange": (_P, _P, _I, _I, _I, _I, _P),
+    # g, out, dpre, n, act, device, stream
+    "sde_conv3x3_bwd_dpre": (_P, _P, _P, _L, _I, _I, _P),
+    # w, slab, Cin, Cout, device, stream
+    "sde_conv3x3_bwd_slab": (_P, _P, _I, _I, _I, _P),
+    # dpre, w, dx, B, H, W, Cin, device, stream
+    "sde_conv3x3_bwd_dx_head": (_P,) * 3 + (_I,) * 5 + (_P,),
+    # dpre, slab, dx, B, H, W, Cin, Cout, border, device, stream
+    "sde_conv3x3_bwd_fold": (_P,) * 3 + (_I,) * 7 + (_P,),
     # B, H, W, Cin, Cout, device, plan (3 long long)
     "sde_conv3x3_bwd_plan": (_I,) * 6 + (ctypes.POINTER(_L),),
-    # g, out, w, dx, B, H, W, Cin, Cout, act, border, device, stream
-    "sde_conv3x3_bwd_dx": (_P,) * 4 + (_I,) * 8 + (_P,),
-    # g, out, x, dw, db, workspace, ws_elems, B, H, W, Cin, Cout, act, border,
-    # device, stream
-    "sde_conv3x3_bwd_dw": (_P,) * 6 + (_L,) + (_I,) * 8 + (_P,),
+    # dpre, x, dw, db, workspace, ws_elems, B, H, W, Cin, Cout, border, device,
+    # stream
+    "sde_conv3x3_bwd_dw": (_P,) * 5 + (_L,) + (_I,) * 7 + (_P,),
     # x, skip, out, B, H, W, C1, C2, esize, device, stream
     "sde_upsample_concat": (_P, _P, _P) + (_I,) * 7 + (_P,),
     # g, dx, dskip, B, H, W, C1, C2, device, stream

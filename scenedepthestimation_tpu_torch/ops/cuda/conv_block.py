@@ -15,12 +15,18 @@ cores, the fp32 path's K-major); callers that run a weight many times pass
 it in. Calls whose input channels are split reuse a workspace and counters
 kept per device and stream (:func:`split_plan`).
 
-The backward is two kernels in ``csrc/conv3x3_bwd.cu``
-(:func:`conv3x3_backward`, fp32), registered as the op's autograd formula:
-``conv3x3_dx`` (the input's gradient, the border folded back) and
-``conv3x3_dw`` (the weight's and the bias's, split over the pixels and
-summed in a fixed order). Both take the forward's output, not its
-pre-activation. They replace the backward of the TPU kernel's custom VJP
+The backward (:func:`conv3x3_backward`, fp32, registered as the op's
+autograd formula) is the kernels of ``csrc/conv3x3_bwd.cu`` and the
+forward's own: :func:`conv3x3_dpre` writes dpre = grad * act'(out) once,
+from the forward's output, into a scratch both gradients read;
+:func:`conv3x3_dx` runs the input's gradient as the zero-bordered conv of
+dpre with the flipped, transposed weight (the fp32 forward kernel on the
+slab :func:`arrange_dx_slab` makes each call; the heads, Cout = 1, on a
+kernel of their own) and then folds the border's gradient back onto the
+rows and columns it maps to; :func:`conv3x3_dw` sums the weight's and the
+bias's over strips of pixels, each block staging the input's halo once for
+all nine taps, split over the pixels and added in a fixed order. They
+replace the backward of the TPU kernel's custom VJP
 (``scenedepthestimation_tpu/ops/pallas/conv_block.py::_fused_bwd``, XLA's
 VJP of ``conv3x3_xla``) and of the JAX ``DispHead``'s conv and sigmoid.
 """
@@ -154,7 +160,7 @@ def conv3x3_backward_plain(
     border back), dbias the sum of dpre. In fp32 (or x's wider type),
     returned in x's, the weight's and the weight's dtypes."""
     acc = _acc_dtype(x)
-    dpre = grad.to(acc) * _activation_grad(out.to(acc), activation)
+    dpre = conv3x3_dpre_plain(grad, out, activation).to(acc)
     with torch.enable_grad():
         xl = x.detach().to(acc).requires_grad_()
         wl = weight.detach().to(acc).requires_grad_()
@@ -233,22 +239,56 @@ def split_plan(b: int, h: int, w: int, cin: int, cout: int, dtype: torch.dtype,
     return tuple(plan)
 
 
-# (device index, stream) -> [fp32 workspace, int32 counters] of the split
-# calls: grown when a call needs more, then kept. Every call leaves the
+# (device index, stream) -> [fp32 workspace, int32 counters, dpre, zeros]:
+# the split calls' workspace and counters, which the dW kernel's workspace
+# shares; the backward's dpre; a zero bias for the input gradient's conv.
+# Each is grown when a call needs more, then kept. Every call leaves the
 # counters at 0; calls on one stream run one after another, so they share
 # them safely.
 _SCRATCH: dict = {}
 _SCRATCH_LOCK = threading.Lock()
 
 
-def _scratch(device: torch.device, stream: int, ws_elems: int, n_counters: int) -> tuple:
+def _kept(device: torch.device, stream: int, slot: int, elems: int,
+          dtype: torch.dtype = torch.float32, zeros: bool = False) -> Optional[torch.Tensor]:
+    """Slot ``slot`` of the store of (device, stream), at least ``elems``
+    long (None while no call has needed it)."""
     with _SCRATCH_LOCK:
-        store = _SCRATCH.setdefault((device.index, stream), [None, None])
-        if ws_elems and (store[0] is None or store[0].numel() < ws_elems):
-            store[0] = torch.empty(ws_elems, dtype=torch.float32, device=device)
-        if n_counters and (store[1] is None or store[1].numel() < n_counters):
-            store[1] = torch.zeros(n_counters, dtype=torch.int32, device=device)
-        return tuple(store)
+        store = _SCRATCH.setdefault((device.index, stream), [None] * 4)
+        if elems and (store[slot] is None or store[slot].numel() < elems):
+            store[slot] = (torch.zeros if zeros else torch.empty)(elems, dtype=dtype,
+                                                                 device=device)
+        return store[slot]
+
+
+def _scratch(device: torch.device, stream: int, ws_elems: int, n_counters: int) -> tuple:
+    return (_kept(device, stream, 0, ws_elems),
+            _kept(device, stream, 1, n_counters, torch.int32, zeros=True))
+
+
+def _launch(x: torch.Tensor, weight: torch.Tensor, slab: Optional[torch.Tensor],
+            bias: torch.Tensor, out: torch.Tensor, activation: str, border: str) -> None:
+    """One sde_conv3x3 call into ``out`` on x's stream, with the split
+    workspace and counters of the (device, stream)."""
+    dev = x.device
+    b, h, w, cin = x.shape
+    cout = out.shape[-1]
+    stream = _build.stream_of(x)
+    _, ws_elems, n_counters = split_plan(b, h, w, cin, cout, x.dtype, dev.index)
+    workspace, counters = _scratch(dev, stream, ws_elems, n_counters)
+    err = _build.lib().sde_conv3x3(
+        x.data_ptr(), weight.data_ptr(), None if slab is None else slab.data_ptr(),
+        bias.data_ptr(), out.data_ptr(),
+        None if workspace is None else workspace.data_ptr(),
+        0 if workspace is None else workspace.numel(),
+        None if counters is None else counters.data_ptr(),
+        0 if counters is None else counters.numel(),
+        b, h, w, cin, cout,
+        _DTYPES[x.dtype], int(out.dtype == torch.float32),
+        ACTIVATIONS[activation], BORDERS[border],
+        dev.index, stream,
+    )
+    _build.check(err, "conv3x3")
 
 
 def _conv3x3(
@@ -295,22 +335,7 @@ def _conv3x3(
     out = torch.empty((b, h, w, cout), dtype=out_dtype, device=dev)
     if out.numel() == 0:
         return out
-    stream = _build.stream_of(x)
-    _, ws_elems, n_counters = split_plan(b, h, w, cin, cout, x.dtype, dev.index)
-    workspace, counters = _scratch(dev, stream, ws_elems, n_counters)
-    err = _build.lib().sde_conv3x3(
-        x.data_ptr(), weight.data_ptr(), None if slab is None else slab.data_ptr(),
-        bias.data_ptr(), out.data_ptr(),
-        None if workspace is None else workspace.data_ptr(),
-        0 if workspace is None else workspace.numel(),
-        None if counters is None else counters.data_ptr(),
-        0 if counters is None else counters.numel(),
-        b, h, w, cin, cout,
-        _DTYPES[x.dtype], int(out_dtype == torch.float32),
-        ACTIVATIONS[activation], BORDERS[border],
-        dev.index, stream,
-    )
-    _build.check(err, "conv3x3")
+    _launch(x, weight, slab, bias, out, activation, border)
     _build.LAUNCHES["conv3x3"] += 1
     return out
 
@@ -327,13 +352,207 @@ conv3x3_op = _build.register_op(
 )
 
 
+def conv3x3_dpre_plain(grad: torch.Tensor, out: torch.Tensor,
+                       activation: str = "elu") -> torch.Tensor:
+    """dpre = grad * act'(out) (:func:`_activation_grad`), in fp32 or the
+    inputs' wider type."""
+    acc = _acc_dtype(grad)
+    return grad.to(acc) * _activation_grad(out.to(acc), activation)
+
+
+def _check_bwd(name: str, **tensors) -> torch.device:
+    dev = next(iter(tensors.values())).device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
+    for k, t in tensors.items():
+        if t.dtype != torch.float32 or t.device != dev:
+            raise TypeError(f"{name} takes float32 on {dev}; {k} is {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} needs a contiguous {k}")
+    return dev
+
+
+def conv3x3_dpre(grad: torch.Tensor, out: torch.Tensor, activation: str = "elu",
+                 dpre: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dpre = grad * act'(out): the dpre kernel on CUDA (into ``dpre``, a
+    float32 tensor of grad's shape, when given), :func:`conv3x3_dpre_plain`
+    on the CPU."""
+    if grad.device.type == "cpu":
+        return conv3x3_dpre_plain(grad, out, activation)
+    dev = _check_bwd("conv3x3_dpre", grad=grad, out=out)
+    if out.shape != grad.shape:
+        raise ValueError(f"grad {tuple(grad.shape)} is not the output's {tuple(out.shape)}")
+    if dpre is None:
+        dpre = torch.empty_like(grad)
+    _check_bwd("conv3x3_dpre", dpre=dpre)
+    if dpre.shape != grad.shape:
+        raise ValueError(f"dpre {tuple(dpre.shape)} is not grad's {tuple(grad.shape)}")
+    err = _build.lib().sde_conv3x3_bwd_dpre(grad.data_ptr(), out.data_ptr(), dpre.data_ptr(),
+                                            grad.numel(), ACTIVATIONS[activation], dev.index,
+                                            _build.stream_of(grad))
+    _build.check(err, "conv3x3_dpre")
+    _build.LAUNCHES["conv3x3_dpre"] += 1
+    return dpre
+
+
+def flip_weight(weight: torch.Tensor) -> torch.Tensor:
+    """w'[ci, co, ky, kx] = w[co, ci, 2 - ky, 2 - kx]: the weight whose
+    zero-bordered conv of dpre is the input's gradient inside the image (a
+    view)."""
+    return weight.flip((2, 3)).transpose(0, 1)
+
+
+def arrange_dx_slab_plain(weight: torch.Tensor) -> torch.Tensor:
+    """The fp32 forward's K-major slab of :func:`flip_weight` of ``weight``
+    (Cout, Cin, 3, 3), in the weight's dtype: (9, Cout rounded up to 8, Cin
+    rounded up to 4), ``m[t, co, ci] = weight[co, ci, 8 - t]`` (taps
+    flattened), zero past Cout and Cin."""
+    cout, cin = weight.shape[:2]
+    _, kp, np_ = slab_shape(cout, cin, torch.float32)
+    m = weight.new_zeros((9, kp, np_))
+    m[:, :cout, :cin] = weight.flip((2, 3)).permute(2, 3, 0, 1).reshape(9, cout, cin)
+    return m
+
+
+def arrange_dx_slab(weight: torch.Tensor) -> torch.Tensor:
+    """:func:`arrange_dx_slab_plain` of a float32 CUDA weight in one launch
+    of the slab kernel; the plain version for a CPU weight."""
+    if weight.device.type == "cpu":
+        return arrange_dx_slab_plain(weight)
+    dev = _check_bwd("conv3x3_dx_slab", weight=weight)
+    cout, cin = weight.shape[:2]
+    _, kp, np_ = slab_shape(cout, cin, torch.float32)
+    slab = torch.empty((9, kp, np_), dtype=torch.float32, device=dev)
+    err = _build.lib().sde_conv3x3_bwd_slab(weight.data_ptr(), slab.data_ptr(), cin, cout,
+                                            dev.index, _build.stream_of(weight))
+    _build.check(err, "conv3x3_dx_slab")
+    _build.LAUNCHES["conv3x3_dx_slab"] += 1
+    return slab
+
+
+def conv3x3_dx_fold_plain(dpre: torch.Tensor, weight: torch.Tensor,
+                          border: str = "reflect") -> torch.Tensor:
+    """What the border adds to the input's gradient (B, H, W, Cin), zero
+    under the zero border: the gradient of the padded input's border rows
+    -1 and H and columns -1 and W (the transposed conv of dpre, corners
+    included), added onto the rows and columns they map to."""
+    b, h, w, _ = dpre.shape
+    cin = weight.shape[1]
+    acc = _acc_dtype(dpre)
+    if border == "zero":
+        return dpre.new_zeros((b, h, w, cin), dtype=acc)
+    g = F.conv_transpose2d(dpre.to(acc).permute(0, 3, 1, 2), weight.to(acc))
+    g[:, :, 1:h + 1, 1:w + 1] = 0
+    g = g.new_zeros((b, cin, h, w + 2)).index_add_(2, _border_rows(h, border, dpre.device), g)
+    g = g.new_zeros((b, cin, h, w)).index_add_(3, _border_rows(w, border, dpre.device), g)
+    return g.permute(0, 2, 3, 1)
+
+
+def conv3x3_dx_plain(dpre: torch.Tensor, weight: torch.Tensor,
+                     border: str = "reflect") -> torch.Tensor:
+    """The input's gradient (B, H, W, Cin) as the kernels compute it: the
+    zero-bordered conv of dpre with :func:`flip_weight` (no bias, no
+    activation) plus :func:`conv3x3_dx_fold_plain`, in fp32 or dpre's wider
+    type."""
+    acc = _acc_dtype(dpre)
+    wt = flip_weight(weight.to(acc))
+    interior = conv3x3_plain(dpre.to(acc), wt, wt.new_zeros(wt.shape[0]), "none", "zero")
+    return interior + conv3x3_dx_fold_plain(dpre, weight, border)
+
+
+def conv3x3_dx(dpre: torch.Tensor, weight: torch.Tensor, border: str = "reflect") -> torch.Tensor:
+    """The input's gradient from dpre (B, H, W, Cout) and the forward's weight
+    (Cout, Cin, 3, 3). On CUDA: the slab of w' (one launch, when read), the
+    interior (``conv3x3_f32_kernel`` on dpre with that slab; Cin = 1 the
+    forward's head kernel on w'; Cout = 1 the heads' dx kernel), then the
+    fold under the reflect and edge borders. :func:`conv3x3_dx_plain` on
+    the CPU."""
+    if dpre.device.type == "cpu":
+        return conv3x3_dx_plain(dpre, weight, border)
+    dev = _check_bwd("conv3x3_dx", dpre=dpre, weight=weight)
+    if border not in BORDERS:
+        raise ValueError(f"unknown border {border!r}")
+    b, h, w, cout = dpre.shape
+    cin = weight.shape[1]
+    if tuple(weight.shape) != (cout, cin, 3, 3):
+        raise ValueError(f"weight {tuple(weight.shape)} does not match dpre {tuple(dpre.shape)}")
+    dx = torch.empty((b, h, w, cin), dtype=torch.float32, device=dev)
+    if dx.numel() == 0:
+        return dx
+    stream = _build.stream_of(dpre)
+    slab = arrange_dx_slab(weight) if border != "zero" or min(cin, cout) > 1 else None
+    if cout == 1:
+        err = _build.lib().sde_conv3x3_bwd_dx_head(dpre.data_ptr(), weight.data_ptr(),
+                                                   dx.data_ptr(), b, h, w, cin, dev.index,
+                                                   stream)
+        _build.check(err, "conv3x3_dx")
+    else:
+        # With Cin = 1 the forward's head kernel runs the interior; it reads
+        # the weight (1, Cout, 3, 3) itself, not a slab.
+        wt = flip_weight(weight).contiguous() if cin == 1 else weight
+        zero = _kept(dev, stream, 3, cin, zeros=True)[:cin]
+        _launch(dpre, wt, slab if cin > 1 else None, zero, dx, "none", "zero")
+    _build.LAUNCHES["conv3x3_dx"] += 1
+    if border != "zero":
+        err = _build.lib().sde_conv3x3_bwd_fold(dpre.data_ptr(), slab.data_ptr(), dx.data_ptr(),
+                                                b, h, w, cin, cout, BORDERS[border], dev.index,
+                                                stream)
+        _build.check(err, "conv3x3_dx_fold")
+        _build.LAUNCHES["conv3x3_dx_fold"] += 1
+    return dx
+
+
+@functools.lru_cache(maxsize=None)
 def bwd_plan(b: int, h: int, w: int, cin: int, cout: int, device_index: int) -> tuple:
-    """(slices, fp32 workspace elements, pieces a slice) of the dW kernel at
+    """(slices, fp32 workspace elements, strips a slice) of the dW kernel at
     this shape on CUDA device ``device_index``, from sde_conv3x3_bwd_plan."""
     plan = (ctypes.c_longlong * 3)()
     err = _build.lib().sde_conv3x3_bwd_plan(b, h, w, cin, cout, device_index, plan)
     _build.check(err, "conv3x3 backward plan")
     return tuple(plan)
+
+
+def conv3x3_dw_plain(dpre: torch.Tensor, x: torch.Tensor,
+                     border: str = "reflect") -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dweight (Cout, Cin, 3, 3), dbias (Cout)) from dpre (B, H, W, Cout)
+    and the forward's input x: autograd of the bordered conv for the
+    weight, the sum of dpre for the bias; in fp32 or x's wider type."""
+    acc = _acc_dtype(x)
+    cout, cin = dpre.shape[-1], x.shape[-1]
+    with torch.enable_grad():
+        wl = torch.zeros((cout, cin, 3, 3), dtype=acc, device=x.device, requires_grad=True)
+        y = _conv_nchw(x.detach().to(acc), wl, None, border)
+        (dw,) = torch.autograd.grad(y, wl, dpre.to(acc).permute(0, 3, 1, 2))
+    return dw, dpre.to(acc).sum(dim=(0, 1, 2))
+
+
+def conv3x3_dw(dpre: torch.Tensor, x: torch.Tensor,
+               border: str = "reflect") -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dweight, dbias) from dpre and the forward's input: on CUDA the dW
+    kernel and its reduce (fp32; the workspace kept per device and stream),
+    :func:`conv3x3_dw_plain` on the CPU."""
+    if x.device.type == "cpu":
+        return conv3x3_dw_plain(dpre, x, border)
+    dev = _check_bwd("conv3x3_dw", dpre=dpre, x=x)
+    if border not in BORDERS:
+        raise ValueError(f"unknown border {border!r}")
+    b, h, w, cin = x.shape
+    cout = dpre.shape[-1]
+    if tuple(dpre.shape[:3]) != (b, h, w):
+        raise ValueError(f"dpre {tuple(dpre.shape)} does not match x {tuple(x.shape)}")
+    dw = torch.empty((cout, cin, 3, 3), dtype=torch.float32, device=dev)
+    db = torch.empty((cout,), dtype=torch.float32, device=dev)
+    if x.numel() == 0 or cout == 0:
+        return dw.zero_(), db.zero_()
+    stream = _build.stream_of(x)
+    _, ws_elems, _ = bwd_plan(b, h, w, cin, cout, dev.index)
+    ws = _kept(dev, stream, 0, ws_elems)
+    err = _build.lib().sde_conv3x3_bwd_dw(
+        dpre.data_ptr(), x.data_ptr(), dw.data_ptr(), db.data_ptr(), ws.data_ptr(), ws.numel(),
+        b, h, w, cin, cout, BORDERS[border], dev.index, stream)
+    _build.check(err, "conv3x3_dw")
+    _build.LAUNCHES["conv3x3_dw"] += 1
+    return dw, db
 
 
 def conv3x3_backward(
@@ -345,8 +564,9 @@ def conv3x3_backward(
     border: str = "reflect",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dx, dweight, dbias) for the gradient ``grad`` of :func:`conv3x3`'s
-    output ``out``: on CUDA the two backward kernels (fp32; ``grad`` made
-    contiguous first, a copy only when it is not), on the CPU
+    output ``out``: on CUDA :func:`conv3x3_dpre` into the (device, stream)'s
+    kept scratch, then :func:`conv3x3_dx` and :func:`conv3x3_dw` (fp32;
+    ``grad`` made contiguous first, a copy only when it is not); on the CPU
     :func:`conv3x3_backward_plain`. Anything else raises."""
     if x.device.type == "cpu":
         return conv3x3_backward_plain(grad, out, x, weight, activation, border)
@@ -366,25 +586,12 @@ def conv3x3_backward(
     if tuple(grad.shape) != tuple(out.shape):
         raise ValueError(f"grad {tuple(grad.shape)} is not the output's {tuple(out.shape)}")
     grad, out, x, weight = (t.contiguous() for t in (grad, out, x, weight))
-    dx = torch.empty_like(x)
-    dw = torch.empty_like(weight)
-    db = torch.empty((cout,), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
-        return dx, dw.zero_(), db.zero_()
-    dev, stream = x.device.index, _build.stream_of(x)
-    act, bord = ACTIVATIONS[activation], BORDERS[border]
-    err = _build.lib().sde_conv3x3_bwd_dx(
-        grad.data_ptr(), out.data_ptr(), weight.data_ptr(), dx.data_ptr(),
-        b, h, w, cin, cout, act, bord, dev, stream)
-    _build.check(err, "conv3x3_dx")
-    _build.LAUNCHES["conv3x3_dx"] += 1
-    _, ws_elems, _ = bwd_plan(b, h, w, cin, cout, dev)
-    ws = torch.empty((ws_elems,), dtype=torch.float32, device=x.device)
-    err = _build.lib().sde_conv3x3_bwd_dw(
-        grad.data_ptr(), out.data_ptr(), x.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        ws.data_ptr(), ws.numel(), b, h, w, cin, cout, act, bord, dev, stream)
-    _build.check(err, "conv3x3_dw")
-    _build.LAUNCHES["conv3x3_dw"] += 1
+        return torch.zeros_like(x), torch.zeros_like(weight), weight.new_zeros((cout,))
+    scratch = _kept(x.device, _build.stream_of(x), 2, grad.numel())
+    dpre = conv3x3_dpre(grad, out, activation, scratch[:grad.numel()].view(grad.shape))
+    dx = conv3x3_dx(dpre, weight, border)
+    dw, db = conv3x3_dw(dpre, x, border)
     return dx, dw, db
 
 

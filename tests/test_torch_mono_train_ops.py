@@ -162,6 +162,222 @@ def test_conv3x3_trains_through_its_op_on_the_card(monkeypatch, trainable):
 
 
 # ---------------------------------------------------------------------------
+# conv3x3's backward kernels: the dx decomposition and the dW strip schedule
+# ---------------------------------------------------------------------------
+
+DX_HW = [(1, 1), (1, 5), (2, 3), (3, 2), (5, 7)]
+
+
+def _bwd_inputs(rng, b, h, w, cin, cout, act, border, dtype=np.float32):
+    x = rng.normal(size=(b, h, w, cin)).astype(dtype)
+    wt = (rng.normal(size=(cout, cin, 3, 3)) / np.sqrt(9 * cin)).astype(dtype)
+    bias = (0.1 * rng.normal(size=(cout,))).astype(dtype)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(wt)
+    out = conv_block.conv3x3_plain(tx, tw, torch.from_numpy(bias), act, border)
+    g = torch.from_numpy(rng.normal(size=out.shape).astype(dtype))
+    return g, out, tx, tw
+
+
+@pytest.mark.parametrize("hw", DX_HW, ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("act", ["elu", "sigmoid", "none"])
+@pytest.mark.parametrize("border", ["reflect", "edge", "zero"])
+def test_conv3x3_dx_decomposition_matches_the_plain_backward(border, act, hw):
+    """The input's gradient as the kernels compute it, the zero-bordered conv
+    of dpre with the flipped, transposed weight plus the fold of the border
+    rows, columns and corners (conv3x3_dx_plain), equals autograd's through
+    the bordered conv (conv3x3_backward_plain): atol 1e-6 x max|ref| in
+    fp32, 1e-12 x in float64."""
+    h, w = hw
+    for dtype, tol in ((np.float32, 1e-6), (np.float64, 1e-12)):
+        rng = np.random.default_rng(DX_HW.index(hw))
+        g, out, x, wt = _bwd_inputs(rng, 2, h, w, 3, 4, act, border, dtype)
+        ref = conv_block.conv3x3_backward_plain(g, out, x, wt, act, border)[0]
+        dpre = conv_block.conv3x3_dpre_plain(g, out, act)
+        got = conv_block.conv3x3_dx_plain(dpre, wt, border)
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        scale = float(ref.abs().max())
+        np.testing.assert_allclose(_np(got), _np(ref), rtol=0, atol=tol * scale)
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 4), (16, 1), (1, 5), (9, 12)])
+def test_dx_slab_read_back_per_tap_gives_the_flipped_weight(cin, cout):
+    """The slab the dx interior runs on, read back per tap (ky, kx) over
+    (co, ci), is w'[ci, co, ky, kx] = w[co, ci, 2 - ky, 2 - kx] transposed,
+    and zero past Cout (to a multiple of 8) and Cin (to a multiple of 4)."""
+    wt = torch.from_numpy(_normal(np.random.default_rng(cin * 31 + cout), (cout, cin, 3, 3)))
+    slab = conv_block.arrange_dx_slab(wt)
+    kp, np_ = -(-cout // 8) * 8, -(-cin // 4) * 4
+    assert tuple(slab.shape) == (9, kp, np_)
+    wp = conv_block.flip_weight(wt)
+    for t in range(9):
+        assert torch.equal(slab[t, :cout, :cin], wp[:, :, t // 3, t % 3].T)
+    assert not slab[:, cout:].any() and not slab[:, :, cin:].any()
+
+
+def _src_index(p, n, border):
+    """csrc/conv3x3_bwd.cu's src_index."""
+    if p < 0 or p >= n:
+        if border == "zero":
+            return -1
+        if border == "reflect":
+            p = -p if p < 0 else 2 * n - 2 - p
+        else:
+            p = 0 if p < 0 else n - 1
+    return min(max(p, 0), n - 1)
+
+
+def _fold_emulation(dpre, slab, cin, border, tile=32, kstep=32):
+    """conv3x3_dx_fold_kernel's schedule in numpy: the destinations in
+    segments that each start a tile (each row the border lands on without
+    the columns, each such column without the rows, each corner; across the
+    batch), tiles of 32 with the union of their pixels' taps, A the extra
+    dpre terms a tap carries to a pixel (in row then column order), B the
+    slab row of tap 8 - t, 32 output channels a step."""
+    b, h, w, cout = dpre.shape
+    slab = slab[:, :cout, :cin]
+    top, bot = _src_index(-1, h, border), _src_index(h, h, border)
+    left, right = _src_index(-1, w, border), _src_index(w, w, border)
+    rows, cols = sorted({top, bot}), sorted({left, right})
+    segments = ([[(bb, y, x) for bb in range(b) for x in range(w) if x not in cols]
+                 for y in rows]
+                + [[(bb, y, x) for bb in range(b) for y in range(h) if y not in rows]
+                   for x in cols]
+                + [[(bb, y, x) for bb in range(b)] for y in rows for x in cols])
+
+    def lines(y, k, n, lo, hi):
+        r = [y + 1 - k] if 0 <= y + 1 - k < n else []
+        ident = bool(r)
+        r += [0] if k == 0 and y == lo else []
+        r += [n - 1] if k == 2 and y == hi else []
+        return r, ident
+
+    def terms(y, x, t):
+        rs, idr = lines(y, t // 3, h, top, bot)
+        cs, idc = lines(x, t % 3, w, left, right)
+        return [(r, c) for i, r in enumerate(rs) for j, c in enumerate(cs)
+                if not (i == 0 and j == 0 and idr and idc)]
+
+    fold = np.zeros((b, h, w, cin), np.float32)
+    for dests in segments:
+        for t0 in range(0, len(dests), tile):
+            px = dests[t0:t0 + tile]
+            mask = [t for t in range(9) if any(terms(y, x, t) for _, y, x in px)]
+            acc = np.zeros((len(px), cin), np.float32)
+            for t in mask:
+                a = np.stack([sum((dpre[bb, r, c] for r, c in terms(y, x, t)),
+                                  np.zeros(cout, np.float32)) for bb, y, x in px])
+                for k0 in range(0, cout, kstep):
+                    acc += a[:, k0:k0 + kstep] @ slab[8 - t, k0:k0 + kstep]
+            for (bb, y, x), v in zip(px, acc):
+                fold[bb, y, x] += v
+    return fold
+
+
+@pytest.mark.parametrize("hw", DX_HW + [(6, 20), (12, 9)], ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("border", ["reflect", "edge"])
+def test_fold_kernel_schedule_matches_the_plain_fold(border, hw):
+    """The fold kernel's schedule, emulated in numpy on the slab of w', adds
+    what conv3x3_dx_fold_plain says the border adds (atol 1e-6 x max|ref|):
+    every destination once, every extra term once, no interior term."""
+    h, w = hw
+    rng = np.random.default_rng(h * 100 + w)
+    dpre = _normal(rng, (3, h, w, 20))
+    wt = torch.from_numpy(_normal(rng, (20, 6, 3, 3), 0.2))
+    ref = _np(conv_block.conv3x3_dx_fold_plain(torch.from_numpy(dpre), wt, border))
+    got = _fold_emulation(dpre, _np(conv_block.arrange_dx_slab_plain(wt)), 6, border)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * np.abs(ref).max())
+
+
+def _dw_cfg(cin, cout):
+    """csrc/conv3x3_bwd.cu's with_dw_cfg: (BM, BN, PW, strip rows)."""
+    bn = 16 if cin <= 16 else (32 if cin <= 32 or (cin % 64 and cin % 32 == 0) else 64)
+    if cout == 1:
+        return 1, max(bn, 32), 16, 16
+    bm = 16 if cout <= 16 else 32
+    pw = 256 // ((bm // 2) * (bn // 4))
+    return bm, bn, pw, max(4, pw)
+
+
+def _dw_emulation(dpre, x, border, slices, tw=20):
+    """conv3x3_dw_kernel's schedule in numpy float32: strips of TH x 20
+    output pixels in slices; per strip the dpre tile and the input's
+    (TH + 2) x 22 halo with the border taken from indices (zero outside
+    under the zero border); the nine taps read as shifted windows of that
+    one halo; each lane of a block walks its rows pixel by pixel; lanes
+    added in lane order, slices in slice order."""
+    b, h, w, cout = dpre.shape
+    cin = x.shape[-1]
+    _, _, pw, th = _dw_cfg(cin, cout)
+    sh, sw = -(-h // th), -(-w // tw)
+    strips = b * sh * sw
+    per = -(-strips // slices)
+    parts = []
+    for sp in range(0, strips, per):
+        lanes = [(np.zeros((9, cout, cin), np.float32), np.zeros(cout, np.float32))
+                 for _ in range(pw)]
+        for s in range(sp, min(strips, sp + per)):
+            bb, rest = divmod(s, sh * sw)
+            oy0, ox0 = (rest // sw) * th, (rest % sw) * tw
+            halo = np.zeros((th + 2, tw + 2, cin), np.float32)
+            for r in range(th + 2):
+                for c in range(tw + 2):
+                    hs = _src_index(oy0 - 1 + r, h, border)
+                    ws = _src_index(ox0 - 1 + c, w, border)
+                    if hs >= 0 and ws >= 0:
+                        halo[r, c] = x[bb, hs, ws]
+            for rr in range(th):
+                acc, dacc = lanes[rr % pw]
+                for c in range(tw):
+                    if oy0 + rr >= h or ox0 + c >= w:
+                        continue
+                    d = dpre[bb, oy0 + rr, ox0 + c]
+                    dacc += d
+                    for t in range(9):
+                        acc[t] += np.outer(d, halo[rr + t // 3, c + t % 3])
+        acc = sum((a for a, _ in lanes[1:]), lanes[0][0].copy())
+        dacc = sum((d for _, d in lanes[1:]), lanes[0][1].copy())
+        parts.append((acc, dacc))
+    dw = sum((a for a, _ in parts[1:]), parts[0][0].copy())
+    db = sum((d for _, d in parts[1:]), parts[0][1].copy())
+    return dw.transpose(1, 2, 0).reshape(cout, cin, 3, 3), db
+
+
+@pytest.mark.parametrize("case", [
+    (2, 5, 7, 6, 5, "reflect", 2), (1, 9, 23, 20, 33, "edge", 3),
+    (2, 6, 20, 8, 1, "reflect", 4), (1, 3, 2, 40, 12, "zero", 1),
+    (3, 1, 1, 4, 3, "reflect", 2)], ids=lambda c: "-".join(map(str, c)))
+def test_dw_strip_schedule_matches_the_plain_dw(case):
+    """The dW kernel's strip schedule (halo strips, nine taps from one staged
+    tile, lanes and slices added in order), emulated in numpy, equals the
+    plain dW and db (conv3x3_dw_plain) within 1e-5 x max|ref| of each, and
+    gives the same bits twice."""
+    b, h, w, cin, cout, border, slices = case
+    rng = np.random.default_rng(h * w + cin)
+    dpre, x = _normal(rng, (b, h, w, cout)), _normal(rng, (b, h, w, cin))
+    ref_w, ref_b = (_np(t) for t in conv_block.conv3x3_dw_plain(
+        torch.from_numpy(dpre), torch.from_numpy(x), border))
+    got_w, got_b = _dw_emulation(dpre, x, border, slices)
+    again_w, again_b = _dw_emulation(dpre, x, border, slices)
+    for got, ref in ((got_w, ref_w), (got_b, ref_b)):
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+    assert np.array_equal(got_w, again_w) and np.array_equal(got_b, again_b)
+
+
+@pytest.mark.parametrize("border", ["reflect", "zero"])
+def test_conv3x3_backward_parts_compose_to_the_plain_backward(border):
+    """The wrappers of the backward's parts (dpre, dx, dW) on the CPU take
+    their plain versions, and together give conv3x3_backward_plain's
+    gradients: dx within 1e-6 x max|ref|, dW and db within 1e-5 x."""
+    g, out, x, wt = _bwd_inputs(np.random.default_rng(7), 2, 6, 9, 5, 7, "elu", border)
+    ref = conv_block.conv3x3_backward_plain(g, out, x, wt, "elu", border)
+    dpre = conv_block.conv3x3_dpre(g, out, "elu")
+    got = (conv_block.conv3x3_dx(dpre, wt, border),) + conv_block.conv3x3_dw(dpre, x, border)
+    for name, a, r, tol in zip(("dx", "dw", "db"), got, ref, (1e-6, 1e-5, 1e-5)):
+        np.testing.assert_allclose(_np(a), _np(r), rtol=0, atol=tol * float(r.abs().max()),
+                                   err_msg=name)
+
+
+# ---------------------------------------------------------------------------
 # BatchNorm in train mode: Flax's rule
 # ---------------------------------------------------------------------------
 
