@@ -170,7 +170,9 @@ Phases, one line each (more for the per-shape kernel checks):
      tower's interleaved halves and the concat's strided gradient,
      soft_argmin_bwd at the three readouts of a refine + aux step,
      upsample_concat_bwd at the aggregation's three joins; off-path shapes
-     besides) against their plain versions, with each one's time by call,
+     besides: segment edges, D > 64, D > W, C > 64) against their plain
+     versions, two calls of each on the same inputs equal bit for bit,
+     with each one's time by call,
      device time, kernel time, bound, plain time and the time of the
      autograd of its plain forward (each timed over argument sets that
      together exceed twice the L2), and ptxas's lines; one supervised step
@@ -252,6 +254,15 @@ a process of about 10 s); one JSON line.
 times config 1's training under ROOT: run_train_bench at b12 and b1,
 supervised and self-supervised, ITERS steps each (default 10, as phase 21
 takes them), TF32 off; one JSON line.
+
+    python3 chip_smoke.py --measure-stereo-train [ROOT] [ITERS]
+
+times config 4's training under ROOT: run_train_bench supervised and
+self-supervised, ITERS steps each (default 20, as phase 20 takes them),
+TF32 off, before any profiler session; then correlation_bwd and
+soft_argmin_bwd at the step's shapes (by call, device and kernel ms, on
+inputs outside the L2); one JSON line. Run a change and its parent (a
+``git archive`` of it) in turns on one card.
 """
 
 from __future__ import annotations
@@ -3222,18 +3233,27 @@ def phase_serving(sdt, _build, conv_block) -> None:
 # correlation's backward at config 4's (B, H, W, C, D), on the tower's
 # interleaved halves with the concat's strided gradient (W stride D + C);
 # off the main path: D = 1 with W below a warp, C = 5 (the single-float
-# path), views off 16 bytes, ragged interleaved halves, D > 64 and D > W.
+# path), views off 16 bytes, ragged interleaved halves, D > 64 and D > W;
+# W at the kernel's 64-column segment edges (63, 64, 65), D > W, C = 5
+# with three D chunks of 40, C > 64 (two channel chunks; D = 64 in two D
+# chunks).
 CORR_BWD_MAIN = (4, 64, 128, 64, 48)
 CORR_BWD_EXTRA = [((1, 2, 5, 16, 1), "contiguous"), ((2, 3, 37, 5, 12), "contiguous"),
                   ((1, 2, 8, 16, 12), "misaligned"), ((3, 5, 70, 64, 48), "interleaved"),
-                  ((1, 3, 130, 24, 100), "contiguous")]
+                  ((1, 3, 130, 24, 100), "contiguous"), ((1, 2, 63, 64, 48), "interleaved"),
+                  ((1, 2, 64, 64, 48), "contiguous"), ((1, 2, 65, 16, 48), "misaligned"),
+                  ((2, 2, 130, 5, 100), "contiguous"), ((1, 2, 20, 8, 48), "contiguous"),
+                  ((1, 1, 129, 72, 64), "contiguous")]
 # soft_argmin's backward at the readouts of a refine + aux step: the refined
 # cost and the /2 and /4 decoder heads' costs, x4 (the feature stride).
 SA_BWD_MAIN = [("readout", (4, 64, 128, 48)), ("aux_s1", (4, 32, 64, 48)),
                ("aux_s2", (4, 16, 32, 48))]
-# (shape, spread): D = 1 and 7, D = 200 and 512, costs spread over +-1e3.
-SA_BWD_EXTRA = [((2, 9, 17, 1), 2.0), ((2, 9, 17, 7), 2.0), ((1, 8, 33, 200), 2.0),
-                ((3, 5, 7, 512), 2.0), ((4, 64, 128, 48), 1e3)]
+# (shape, spread): D = 1 and 7 (the looped path), D = 12 and 24 (1 and 2
+# lanes a pixel), D = 200 and 512 (16 and 32), 306 pixels (not a whole
+# number of warps' pixels), costs spread over +-1e3.
+SA_BWD_EXTRA = [((2, 9, 17, 1), 2.0), ((2, 9, 17, 7), 2.0), ((2, 9, 17, 12), 2.0),
+                ((2, 9, 17, 24), 2.0), ((1, 8, 33, 200), 2.0), ((3, 5, 7, 512), 2.0),
+                ((4, 64, 128, 48), 1e3)]
 # soft_argmin's backward operations per cost element: the max, an exp and
 # two multiply-adds, then an exp, a subtraction and two multiplications.
 SA_BWD_OPS = 8
@@ -3351,7 +3371,8 @@ def _bwd_times(name, kernel, plain, autograd_fn, sets: list, r: dict, nbytes_: f
              if kernel_ms is None else
              f"{kernel_ms:.4f} ms of kernel time ({100 * bound / kernel_ms:.1f}%)")
     return (f"{len(sets)} argument sets in turn, {len(sets) * nbytes_ / 2**20:.0f} MiB; "
-            f"kernel {t['ms']:.4f} ms by call, {t['device_ms']:.4f} ms device (events queued "
+            f"kernel {t['ms']:.4f} ms by call ({100 * bound / t['ms']:.1f}% of the bound), "
+            f"{t['device_ms']:.4f} ms device (events queued "
             f"behind a spin kernel; {100 * bound / t['device_ms']:.1f}% of the bound), "
             f"{ktext}; bound {bound:.4f} ms ({by}); plain {t['plain_ms']:.4f} ms; autograd of "
             f"the plain forward {t['autograd_ms']:.4f} ms")
@@ -3408,13 +3429,22 @@ def _upcat_bwd_case(upcat, rng, shape):
     return (g, c1), all(torch.equal(x, y) for x, y in zip(got, ref))
 
 
+def _bit_stable(name, fn, args) -> None:
+    """Two calls of a kernel wrapper on the same inputs give the same bits."""
+    a, b = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    a, b = (a,) if torch.is_tensor(a) else a, (b,) if torch.is_tensor(b) else b
+    check(all(torch.equal(x, y) for x, y in zip(a, b)), f"{name}: two calls differ")
+
+
 def _train_kernels(corr, sa, upcat) -> dict:
     """The three backward kernels at the config-4 step's shapes and off it,
     each against its plain version, with the times and bounds."""
     rng = np.random.default_rng(20)
     res = {}
     log = _nvcc_log(corr._build)
-    for k in ("correlation_bwd_kernel", "soft_argmin_bwd_kernel", "upsample_concat_bwd_kernel"):
+    for k in ("correlation_bwd_kernel", "soft_argmin_bwd_lanes_kernel",
+              "soft_argmin_bwd_looped_kernel", "upsample_concat_bwd_kernel"):
         lines = ptxas_lines(log, k)
         print(f"[20 {k} ptxas] " + "; ".join(
             f"{a} {r_} registers, {sp} bytes of spill stores" for a, r_, sp in lines))
@@ -3423,9 +3453,11 @@ def _train_kernels(corr, sa, upcat) -> dict:
     r = res["correlation_bwd"] = {"err": 0.0}
     args, err, ok = _corr_bwd_case(corr, rng, CORR_BWD_MAIN, "interleaved")
     check(ok, f"correlation_bwd {CORR_BWD_MAIN} disagrees with its plain version")
+    _bit_stable("correlation_bwd", corr.correlation_backward, args)
     r["err"] = err
     g, fl, fr, d = args
     b, h, w, c, _ = CORR_BWD_MAIN
+    plan = corr.backward_plan(w, c, d)
     pair = fl._base.detach().clone().requires_grad_()
     pl, pr = pair.view(b, 2, h, w, c)[:, 0], pair.view(b, 2, h, w, c)[:, 1]
     out = corr.correlation_plain(pl, pr, d)
@@ -3438,16 +3470,24 @@ def _train_kernels(corr, sa, upcat) -> dict:
         moved, 2 * terms)
     print(f"[20 correlation_bwd] {CORR_BWD_MAIN[:4]} D={d}, the tower's interleaved halves and "
           f"the concat's gradient slice (W stride {g.stride(2)}): max|err| {err:.3g} (atol 1e-5 "
-          f"+ rtol 1e-5); {text}")
+          f"+ rtol 1e-5), two calls equal bit for bit; {b * h * plan['w_segments']} units "
+          f"(row segments) on one block of {plan['threads']} threads an SM, D chunk "
+          f"{plan['d_tile']} x {plan['d_tiles']}, {plan['shared_bytes']} bytes of shared memory "
+          f"a block; {text}")
     for shape, layout in CORR_BWD_EXTRA:
-        _, err, ok = _corr_bwd_case(corr, rng, shape, layout)
-        print(f"[20 correlation_bwd extra] {shape[:4]} D={shape[4]} {layout}: max|err| {err:.3g}")
+        args, err, ok = _corr_bwd_case(corr, rng, shape, layout)
+        _bit_stable(f"correlation_bwd {shape}", corr.correlation_backward, args)
+        plan = corr.backward_plan(shape[2], shape[3], shape[4])
+        print(f"[20 correlation_bwd extra] {shape[:4]} D={shape[4]} {layout}: max|err| {err:.3g}, "
+              f"bit-stable; D chunk {plan['d_tile']} x {plan['d_tiles']}, channel chunks "
+              f"{plan['chunks']}")
         check(ok, f"correlation_bwd {shape} {layout} disagrees with its plain version")
 
     r = res["soft_argmin_bwd"] = {"err": 0.0}
     for name, shape in SA_BWD_MAIN:
         args, err, ok = _sa_bwd_case(sa, rng, shape, 2.0)
         check(ok, f"soft_argmin_bwd {shape} disagrees with its plain version")
+        _bit_stable(f"soft_argmin_bwd {name}", sa.soft_argmin_backward, args)
         r["err"] = max(r["err"], err)
         g, cost, scale = args
         leaf = cost.detach().clone().requires_grad_()
@@ -3458,11 +3498,14 @@ def _train_kernels(corr, sa, upcat) -> dict:
             "soft_argmin_bwd", sa.soft_argmin_backward, sa.soft_argmin_backward_plain,
             lambda g_, *_: torch.autograd.grad(out, leaf, g_, retain_graph=True), sets, r,
             moved, SA_BWD_OPS * cost.numel())
-        print(f"[20 soft_argmin_bwd] {name} {shape} x{scale:g}: max|err| {err:.3g} (atol 2e-6 x "
-              f"max|dcost| + rtol 1e-5); {text}")
+        print(f"[20 soft_argmin_bwd] {name} {shape} x{scale:g}, lane plan (lanes, vectors) "
+              f"{sa.lane_plan(shape[-1], torch.float32)}: max|err| {err:.3g} (atol 2e-6 x "
+              f"max|dcost| + rtol 1e-5), two calls equal bit for bit; {text}")
     for shape, spread in SA_BWD_EXTRA:
-        _, err, ok = _sa_bwd_case(sa, rng, shape, spread)
-        print(f"[20 soft_argmin_bwd extra] {shape} spread {spread:g}: max|err| {err:.3g}")
+        args, err, ok = _sa_bwd_case(sa, rng, shape, spread)
+        _bit_stable(f"soft_argmin_bwd {shape}", sa.soft_argmin_backward, args)
+        print(f"[20 soft_argmin_bwd extra] {shape} spread {spread:g}, lane plan "
+              f"{sa.lane_plan(shape[-1], torch.float32)}: max|err| {err:.3g}, bit-stable")
         check(ok, f"soft_argmin_bwd {shape} spread {spread:g} disagrees with its plain version")
 
     r = res["upsample_concat_bwd"] = {"err": 0.0}
@@ -4517,9 +4560,56 @@ def measure_train(root: str, iters: int) -> int:
     return 0
 
 
+def measure_stereo_train(root: str, iters: int) -> int:
+    """The --measure-stereo-train mode: config 4's run_train_bench of the
+    package under root, supervised and self-supervised, ITERS steps each,
+    before any profiler session of the process; then its two stereo
+    backward kernels at the step's shapes (correlation_bwd at
+    CORR_BWD_MAIN on the tower's interleaved halves and the concat's
+    gradient slice, soft_argmin_bwd at each SA_BWD_MAIN readout), each on
+    argument sets that exceed twice the L2 in turn: by call, device
+    (queued events) and, last, kernel time (torch.profiler); one JSON
+    line."""
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    sys.path.insert(0, os.path.abspath(root))
+    import scenedepthestimation_tpu_torch as sdt
+    from scenedepthestimation_tpu_torch import benchmark
+    from scenedepthestimation_tpu_torch.ops.cuda import correlation as corr
+    from scenedepthestimation_tpu_torch.ops.cuda import soft_argmin as sa
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = [{k: r[k] for k in ("metric", "value", "steps_per_sec", "step_ms", "batch_size")}
+            for r in (benchmark.run_train_bench(STEREO_CONFIG, mode=m, iters=iters)
+                      for m in ("supervised", "selfsup"))]
+    rng = np.random.default_rng(20)
+    calls = {}
+    args = _corr_bwd_args(rng, CORR_BWD_MAIN, "interleaved")
+    moved = nbytes(args[0][..., 0]) * args[3] + 4 * nbytes(args[1])
+    calls["correlation_bwd"] = (corr.correlation_backward, _cold_sets(
+        args, lambda: _corr_bwd_args(rng, CORR_BWD_MAIN, "interleaved"), moved), moved)
+    for name, shape in SA_BWD_MAIN:
+        args = _sa_bwd_args(rng, shape, 2.0)
+        moved = 2 * nbytes(args[1]) + nbytes(args[0])
+        calls[f"soft_argmin_bwd_{name}"] = (sa.soft_argmin_backward, _cold_sets(
+            args, lambda: _sa_bwd_args(rng, shape, 2.0), moved), moved)
+    kernels = {}
+    for name, (fn, sets, moved) in calls.items():
+        call = _cycling(fn, sets)
+        kernels[name] = {"ms": time_ms(call), "device_ms": _queued_ms(call),
+                         "bound_ms": bound_ms(moved, 0.0, "fp32")[0]}
+    for name, (fn, sets, _) in calls.items():
+        kernels[name]["kernel_ms"] = _kernel_time(_cycling(fn, sets), n=RUNS)[0]
+    print(json.dumps({"package": os.path.dirname(sdt.__file__),
+                      "device": torch.cuda.get_device_name(0), "iters": iters, "rows": rows,
+                      "kernels": kernels}))
+    return 0
+
+
 def main() -> int:
     modes = {"--measure": (measure, 200), "--measure-b1": (measure_b1, 200),
-             "--measure-train": (measure_train, 10)}
+             "--measure-train": (measure_train, 10),
+             "--measure-stereo-train": (measure_stereo_train, 20)}
     if sys.argv[1:2] and sys.argv[1] in modes:
         fn, default = modes[sys.argv[1]]
         rest = sys.argv[2:]
@@ -4671,15 +4761,19 @@ def main() -> int:
                             "custom VJP of the kernel at ops/pallas/correlation.py:113)",
                             f"{STEREO_CONFIG} b4 train step, g (4, 64, 128, 48) read through "
                             "the concat's strides, the tower's interleaved halves (4, 64, 128, "
-                            "64) fp32; plain_ms is the explicit plain backward, no one PyTorch "
-                            "call computes it"),
+                            "64) fp32 (correlation_bwd_kernel: a block a row's 64-column segment "
+                            "with both outputs, the views' windows and g's rows staged once, 8 x "
+                            "4 register tiles sliding along d); plain_ms is the explicit plain "
+                            "backward, no one PyTorch call computes it"),
         "soft_argmin_bwd": ("scenedepthestimation_tpu_torch/csrc/soft_argmin.cu",
                             "scenedepthestimation_tpu/ops/soft_argmin.py:62 (_soft_argmin_jnp, "
                             "differentiated by XLA in the JAX train steps; the kernel at "
                             "ops/pallas/soft_argmin.py:41 has no VJP)",
                             f"{STEREO_CONFIG} b4 refine + aux train step: (4, 64, 128, 48), "
-                            "(4, 32, 64, 48), (4, 16, 32, 48) x4 fp32; plain_ms is the explicit "
-                            "plain backward"),
+                            "(4, 32, 64, 48), (4, 16, 32, 48) x4 fp32 "
+                            "(soft_argmin_bwd_lanes_kernel: the forward's lane groups, 4 lanes "
+                            "a pixel, the row and its exps in registers); plain_ms is the "
+                            "explicit plain backward"),
         "upsample_concat_bwd": ("scenedepthestimation_tpu_torch/csrc/upsample_concat.cu",
                                 "scenedepthestimation_tpu/ops/upsample.py:141 (upsample_concat, "
                                 "differentiated by XLA in the JAX train steps; the kernel at "

@@ -106,8 +106,8 @@ _SIGNATURES = {
     "sde_correlation_gram": (_P, _L, _P, _L, _P) + (_I,) * 7 + (_P,),
     # cost, out, n, D, dtype, scale, depth, fb, lanes, vecs, device, stream
     "sde_soft_argmin": (_P, _P, _L, _I, _I, _F, _I, _F, _I, _I, _I, _P),
-    # grad, cost, dcost, n, D, scale, device, stream
-    "sde_soft_argmin_bwd": (_P, _P, _P, _L, _I, _F, _I, _P),
+    # grad, cost, dcost, n, D, scale, lanes, vecs, device, stream
+    "sde_soft_argmin_bwd": (_P, _P, _P, _L, _I, _F, _I, _I, _I, _P),
     # y1, w00, b00, w01, b01, wslab, y0, B, h, w, C1, C0, C0o, dtype, device,
     # stream
     "sde_fused_tail": (_P,) * 7 + (_I,) * 8 + (_P,),

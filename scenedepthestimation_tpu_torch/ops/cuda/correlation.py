@@ -12,9 +12,9 @@ halves of the stereo tower's interleaved (2B, H, W, C) output as they
 are: views with contiguous (W, C) rows and a batch stride of 2*H*W*C.
 
 The backward is ``csrc/correlation_bwd.cu`` (:func:`correlation_backward`,
-fp32): the counterpart of the JAX package's analytic VJP
-``scenedepthestimation_tpu/ops/correlation.py::_corr_bwd``, registered as
-the op's autograd formula. :func:`correlation_backward_plain` is that VJP
+fp32; its blocking :func:`backward_plan`): the counterpart of the JAX
+package's analytic VJP ``scenedepthestimation_tpu/ops/correlation.py::
+_corr_bwd``, registered as the op's autograd formula. :func:`correlation_backward_plain` is that VJP
 written in PyTorch, in its order of sums.
 """
 
@@ -67,6 +67,45 @@ def tile_plan(w: int, c: int, d: int) -> dict:
         "chunk": CHUNK,
         "chunks": -(-c // CHUNK),
         "stages": STAGES,
+    }
+
+
+# The backward kernel's blocking (csrc/correlation_bwd.cu): units of a row's
+# W segment of BWD_SEGMENT columns with both outputs, walked by one block an
+# SM with the next unit's staging in flight; a thread a BWD_PIXELS x 4
+# register tile of one output, sliding along d; BWD_CHUNK channels a chunk;
+# D in chunks of at most BWD_MAX_D, each a multiple of 8.
+BWD_SEGMENT = 64
+BWD_PIXELS = 8
+BWD_CHUNK = 64
+BWD_MAX_D = 48
+
+
+def backward_plan(w: int, c: int, d: int) -> dict:
+    """The backward kernel's blocking for a (W, C) row and D disparities:
+    the W segments, the register tile, the D chunk (the fewest chunks of at
+    most BWD_MAX_D, each rounded up to a multiple of 8: tile, tiles; D = 48
+    is one chunk of 48), the threads a block (half for each output), the
+    columns of each view's window and the rows of g a block stages, the
+    channel chunks and the shared memory a block takes, in bytes (two
+    stages of the windows, g's rows and, with more than one D chunk, d_fl's
+    own rows of g)."""
+    tiles = -(-d // BWD_MAX_D)
+    dt = -(-(-(-d // tiles)) // 8) * 8
+    nd = -(-d // dt)
+    window = BWD_SEGMENT + dt - 1
+    stage = 2 * window * BWD_CHUNK + window * dt + (BWD_SEGMENT * dt if nd > 1 else 0)
+    return {
+        "w_segment": BWD_SEGMENT,
+        "w_segments": -(-w // BWD_SEGMENT),
+        "register_tile": (BWD_PIXELS, 4),
+        "d_tile": dt,
+        "d_tiles": nd,
+        "threads": 2 * (BWD_SEGMENT // BWD_PIXELS) * (BWD_CHUNK // 4),
+        "window": window,
+        "chunk": BWD_CHUNK,
+        "chunks": -(-c // BWD_CHUNK),
+        "shared_bytes": 4 * 2 * stage,
     }
 
 

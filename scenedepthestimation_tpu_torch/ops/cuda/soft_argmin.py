@@ -14,8 +14,10 @@ The backward, for an fp32 cost and no epilogue, is the kernel
 ``sde_soft_argmin_bwd`` in the same source (:func:`soft_argmin_backward`),
 registered as the op's autograd formula: with ``p = softmax(-cost)`` and
 ``E = sum_d d p_d``, ``dcost_k = -g * scale * p_k * (k - E)``, recomputed
-from the cost. It replaces what XLA derives for the JAX package's readout
-(``scenedepthestimation_tpu/ops/soft_argmin.py::_soft_argmin_jnp``).
+from the cost on the forward's lane groups (:func:`lane_plan`), a looped
+path where there is no plan. It replaces what XLA derives for the JAX
+package's readout (``scenedepthestimation_tpu/ops/soft_argmin.py::
+_soft_argmin_jnp``).
 """
 
 from __future__ import annotations
@@ -148,9 +150,12 @@ def soft_argmin_backward(
     out = torch.empty_like(cost)
     if out.numel() == 0:
         return out
+    plan = lane_plan(cost.shape[-1], cost.dtype)
+    if cost.data_ptr() % 16:
+        plan = None
     err = _build.lib().sde_soft_argmin_bwd(
         grad.data_ptr(), cost.data_ptr(), out.data_ptr(), grad.numel(), cost.shape[-1],
-        float(scale), cost.device.index, _build.stream_of(cost),
+        float(scale), *(plan or (0, 0)), cost.device.index, _build.stream_of(cost),
     )
     _build.check(err, "soft_argmin_bwd")
     _build.LAUNCHES["soft_argmin_bwd"] += 1

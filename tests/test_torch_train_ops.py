@@ -10,6 +10,7 @@ the CPU. The CUDA backward kernels are held to those plain versions on the
 card by chip_smoke.py (phase 20).
 """
 
+import functools
 import importlib
 
 import jax
@@ -124,6 +125,210 @@ def test_soft_argmin_backward_plain_is_autograd_of_the_plain_forward():
     np.testing.assert_allclose(_np(got), _np(t.grad), atol=3e-6 * np.abs(_np(t.grad)).max())
     with pytest.raises(NotImplementedError):
         sa_kernel.soft_argmin_backward(torch.from_numpy(g), torch.from_numpy(cost), 4.0, "depth")
+
+
+# ---------------------------------------------------------------------------
+# The CUDA backward kernels' schedules, emulated in numpy
+# ---------------------------------------------------------------------------
+
+
+def _corr_bwd_emulation(g, fl, fr, d):
+    """csrc/correlation_bwd.cu's schedule in numpy, fp32: a unit a row's W
+    segment, per 64-channel chunk and D chunk (backward_plan) the views'
+    zero-filled windows and g's rows staged (d_fl's rows of g are the first
+    64 in D chunk 0), each thread's ring of 8 columns taking the one that
+    enters at every step, g read as 4-step vectors (a row a pixel for
+    d_fl, the 11 rows the diagonals cross for d_fr), all of a unit's
+    threads at once, d ascending across chunks, the 1/C last. The kernel's
+    FMAs round once where this rounds twice."""
+    b_, h_, w_, c_ = fl.shape
+    plan = corr_kernel.backward_plan(w_, c_, d)
+    seg, px, dt, nd, kc = (plan["w_segment"], plan["register_tile"][0], plan["d_tile"],
+                           plan["d_tiles"], plan["chunk"])
+    ncols = plan["window"]
+    assert plan["threads"] == 2 * (seg // px) * (kc // 4)
+    pg = np.arange(seg // px)
+    d_fl = np.full(fl.shape, np.nan, np.float32)
+    d_fr = np.full(fr.shape, np.nan, np.float32)
+
+    def window(view, col0, c0):
+        out = np.zeros((ncols, kc), np.float32)
+        cols = col0 + np.arange(ncols)
+        ok = (cols >= 0) & (cols < w_)
+        out[ok, : min(kc, c_ - c0)] = view[cols[ok], c0 : c0 + kc]
+        return out
+
+    def g_rows(grow, r0, nrows, d0):
+        out = np.zeros((nrows, dt), np.float32)
+        rows, ks = r0 + np.arange(nrows), d0 + np.arange(dt)
+        out[np.ix_(rows < w_, ks < d)] = grow[np.ix_(rows[rows < w_], ks[ks < d])]
+        return out
+
+    for bi in range(b_):
+        for hi in range(h_):
+            for w0 in range(0, w_, seg):
+                for c0 in range(0, c_, kc):
+                    acc = {False: np.zeros((len(pg), px, kc), np.float32),
+                           True: np.zeros((len(pg), px, kc), np.float32)}
+                    for d0 in range(0, nd * dt, dt):
+                        graw = g_rows(g[bi, hi], w0 + d0, ncols, d0)
+                        rows = {False: graw[:seg] if d0 == 0 else g_rows(g[bi, hi], w0, seg, d0),
+                                True: graw}
+                        win = {False: window(fr[bi, hi], w0 - d0 - dt + 1, c0),
+                               True: window(fl[bi, hi], w0 + d0, c0)}
+                        for right in (False, True):
+                            jb = px * pg + (0 if right else dt - 1)
+                            ring = np.zeros((len(pg), px, kc), np.float32)
+                            for i in range(px):
+                                if i != (px - 1 if right else 0):
+                                    ring[:, i] = win[right][jb + i]
+                            for k in range(dt):
+                                s = k % 8
+                                if s % 4 == 0:  # (pixel group, vector j, 4 steps)
+                                    nv = px + 3 if right else px
+                                    r = (px * pg)[:, None] + (k if right else 0) + np.arange(nv)
+                                    gv = rows[right][r][:, :, k : k + 4]
+                                if right:
+                                    ring[:, (px - 1 + s) % px] = win[right][jb + px - 1 + k]
+                                else:
+                                    ring[:, (px - s) % px] = win[right][jb - k]
+                                vec = np.arange(px) + (s % 4 if right else 0)
+                                gk = gv[:, vec, s % 4]
+                                slots = [(i + s) % px if right else (i - s) % px
+                                         for i in range(px)]
+                                acc[right] += gk[:, :, None] * ring[:, slots]
+                    inv_c = np.float32(1) / np.float32(c_)
+                    n = min(seg, w_ - w0)
+                    for right, out in ((False, d_fl), (True, d_fr)):
+                        tile = acc[right].reshape(seg, kc)[:n, : min(kc, c_ - c0)]
+                        out[bi, hi, w0 : w0 + n, c0 : c0 + kc] = tile * inv_c
+    return d_fl, d_fr
+
+
+def _corr_problem(shape):
+    """(fl, fr, g) for a (B, H, W, C, D) case, g the slice [..., :D] of a
+    (D + C)-wide gradient, as the concat hands it back."""
+    b, h, w, c, d = shape
+    rng = np.random.default_rng(sum(shape) + 7)
+    fl, fr = _normal(rng, (b, h, w, c)), _normal(rng, (b, h, w, c))
+    return fl, fr, _normal(rng, (b, h, w, d + c))[..., :d]
+
+
+def _jax_corr_vjp(fl, fr, g):
+    d = g.shape[-1]
+    _, vjp = jax.vjp(lambda x, y: _correlation_pallas_op(x, y, d), jnp.asarray(fl),
+                     jnp.asarray(fr))
+    return tuple(np.asarray(v) for v in jax.jit(vjp)(jnp.asarray(np.ascontiguousarray(g))))
+
+
+# W at the kernel's 64-column segment edges and past two segments, with D
+# = 48 (one D chunk) and D = 100 (two; D > W at W <= 65), C = 5.
+SCHEDULE_WIDTHS = (63, 64, 65, 130)
+SCHEDULE_DS = (48, 100)
+CORR_SCHEDULE_CASES = CORR_CASES + [(1, 1, w, 5, d) for d in SCHEDULE_DS for w in SCHEDULE_WIDTHS]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_corr_vjp_widths(d):
+    """jax.vjp of the TPU kernel's op (interpret mode) for the cases
+    (1, 1, W, 5, d), W in SCHEDULE_WIDTHS, in one call: each case's
+    features and gradient zero-padded to the widest W as one batch entry.
+    Columns past W add only zero terms, so each entry's first W columns are
+    that case's gradients (one interpret-mode forward and one compile for
+    the four, where each costs 2-5 s on the CPU)."""
+    wmax = max(SCHEDULE_WIDTHS)
+    fl = np.zeros((len(SCHEDULE_WIDTHS), 1, wmax, 5), np.float32)
+    fr, g = np.zeros_like(fl), np.zeros((len(SCHEDULE_WIDTHS), 1, wmax, d), np.float32)
+    for i, w in enumerate(SCHEDULE_WIDTHS):
+        fl[i, :, :w], fr[i, :, :w], g[i, :, :w] = _corr_problem((1, 1, w, 5, d))
+    want_l, want_r = _jax_corr_vjp(fl, fr, g)
+    return {w: (want_l[i : i + 1, :, :w], want_r[i : i + 1, :, :w])
+            for i, w in enumerate(SCHEDULE_WIDTHS)}
+
+
+@pytest.mark.parametrize("shape", CORR_SCHEDULE_CASES, ids=lambda s: "x".join(map(str, s)))
+def test_correlation_backward_schedule_matches_plain_and_jax(shape):
+    """The backward kernel's schedule (segments, halos, D chunks, sliding
+    register rings, g's row vectors, d ascending), emulated in numpy on the
+    concat's strided gradient, equals correlation_backward_plain and
+    jax.vjp of the TPU kernel's op (interpret mode) within atol 1e-6."""
+    b, h, w, c, d = shape
+    fl, fr, g = _corr_problem(shape)
+    got = _corr_bwd_emulation(g, fl, fr, d)
+    plain = corr_kernel.correlation_backward_plain(
+        torch.from_numpy(g), torch.from_numpy(fl), torch.from_numpy(fr), d)
+    if shape in CORR_CASES:
+        want = _jax_corr_vjp(fl, fr, g)
+    else:
+        want = _jax_corr_vjp_widths(d)[w]
+    for e, p_, j in zip(got, plain, want):
+        np.testing.assert_allclose(e, _np(p_), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(e, j, rtol=0, atol=1e-6)
+
+
+def _butterfly(v, op):
+    """The kernels' xor-shuffle reduction over the last axis (lanes), in
+    its order: lane j combines with lane j ^ o for o = K/2 .. 1."""
+    o = v.shape[-1] // 2
+    while o:
+        v = op(v, v[..., np.arange(v.shape[-1]) ^ o])
+        o //= 2
+    return v[..., 0]
+
+
+def _sa_bwd_emulation(g, cost, scale):
+    """csrc/soft_argmin.cu's backward in numpy, fp32: with lane_plan's (K
+    lanes, NV vectors), lane j of a pixel's group holds the row's 4-value
+    vectors j, j + K, ...; its max, its exps (kept) and its two sums in the
+    kernel's order, each reduced over the group by the xor butterfly; then
+    -g scale / den * ex_k * (k - num / den). Rows without a plan take the
+    looped path: lane l of a warp holds d = l, l + 32, ...."""
+    d = cost.shape[-1]
+    x = cost.reshape(-1, d).astype(np.float32)
+    n = x.shape[0]
+    plan = sa_kernel.lane_plan(d, torch.float32)
+    if plan is None:
+        lanes, ks = 32, [np.arange(lane, d, 32) for lane in range(32)]
+    else:
+        lanes, nv = plan
+        ks = [np.concatenate([np.arange(4 * v, 4 * v + 4) for v in range(j, d // 4, lanes)][:nv]
+                             or [np.arange(0)]) for j in range(lanes)]
+    m = np.full((n, lanes), -np.inf, np.float32)
+    den, num = np.zeros((n, lanes), np.float32), np.zeros((n, lanes), np.float32)
+    for j, kj in enumerate(ks):
+        for k in kj:
+            m[:, j] = np.maximum(m[:, j], -x[:, k])
+    m = _butterfly(m, np.maximum)
+    ex = np.zeros_like(x)
+    for j, kj in enumerate(ks):
+        for k in kj:
+            ex[:, k] = np.exp(-x[:, k] - m)
+            den[:, j] += ex[:, k]
+            num[:, j] += ex[:, k] * np.float32(k)
+    den, num = _butterfly(den, np.add), _butterfly(num, np.add)
+    mean = num / den
+    gs = -g.reshape(-1).astype(np.float32) * np.float32(scale) / den
+    out = (gs[:, None] * ex) * (np.arange(d, dtype=np.float32)[None, :] - mean[:, None])
+    return out.reshape(cost.shape)
+
+
+@pytest.mark.parametrize("d", [1, 7, 12, 24, 48, 200])
+def test_soft_argmin_backward_lane_schedule_matches_plain_and_jax(d):
+    """The backward kernel's lane-group schedule (lanes and vectors from
+    lane_plan; D = 1 and 7 the looped path), emulated in numpy, equals
+    soft_argmin_backward_plain and jax.vjp of the JAX readout x4 within
+    atol 3e-6 x max|dcost|, as the readout's backward test holds them."""
+    scale = 4.0
+    rng = np.random.default_rng(d + 11)
+    cost, g = _normal(rng, (2, 3, 5, d), 2.0), _normal(rng, (2, 3, 5))
+    got = _sa_bwd_emulation(g, cost, scale)
+    plain = _np(sa_kernel.soft_argmin_backward_plain(torch.from_numpy(g), torch.from_numpy(cost),
+                                                     scale))
+    want = np.asarray(jax.jit(lambda c, g_: jax.vjp(
+        lambda c_: jax_sa.soft_argmin(c_) * scale, c)[1](g_)[0])(jnp.asarray(cost), jnp.asarray(g)))
+    atol = 3e-6 * max(np.abs(want).max(), 1.0)
+    np.testing.assert_allclose(got, plain, rtol=0, atol=atol)
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
 
 
 # x (B, H, W, C1), skip channels C2: config 4's three joins' channel plans at
