@@ -222,10 +222,12 @@ Phases, one line each (more for the per-shape kernel checks):
      profile of each b12 step.
  22. bf16 stereo training (config 5, stereo_kitti2015_b16_bf16_v5e8, b16 at
      384x1152; run after 21 and before 19): correlation_gram's backward
-     (correlation_bwd_kernel in bf16) against its plain version on the
-     tower's interleaved halves and the concat's gradient slice, at
-     _c128's and latency_d96's shapes, D > 48 in chunks, W off the
-     segment, C = 5 and views off 16 bytes; upsample_concat's bf16
+     (correlation_gram_bwd_kernel: both gradients as transposed banded
+     Grams on mma.sync, with its blocking from backward_plan) against its
+     plain version on the tower's interleaved halves and the concat's
+     gradient slice, at _c128's and latency_d96's shapes, D > 48 in
+     chunks, W off the 64-column tile, C = 5 and views off 16 bytes;
+     upsample_concat's bf16
      backward at the three joins and off them (exact); each bit-stable,
      their ptxas lines, times and bounds; cuDNN's bf16 conv with its bias
      against the conv and then the bias in bf16 (Flax's rule); the
@@ -279,6 +281,16 @@ TF32 off, before any profiler session; then correlation_bwd and
 soft_argmin_bwd at the step's shapes (by call, device and kernel ms, on
 inputs outside the L2); one JSON line. Run a change and its parent (a
 ``git archive`` of it) in turns on one card.
+
+    python3 chip_smoke.py --measure-gram-bwd [ROOT] [RUNS]
+
+times kernel 7b of the package under ROOT, correlation_gram_backward at
+config 5's step shape (GRAM_BWD_MAIN) on the tower's interleaved halves and
+the concat's gradient slice, on argument sets made from one seed (the same
+in every process) that together exceed twice the L2: its error against its
+plain version in bf16 spacings, and its time by call, device and kernel
+(RUNS calls each, default 30), beside the card's name and power limit; one
+JSON line. Run a change and its parent in turns on one card.
 """
 
 from __future__ import annotations
@@ -722,14 +734,16 @@ def phase_conv_device(conv_block, r: dict) -> None:
         total += dev_ms
         print(f"[3 conv3x3 fp32 device] {name}: {dev_ms:.4f} ms (the card's launch latency "
               f"included), {100 * bound / dev_ms:.1f}% of the bound {bound:.5f} ms")
-    kernel_ms, launches = _kernel_time(
-        lambda: [conv_block.conv3x3(*args, slab=slab) for _, args, slab, _ in calls])
-    check(launches == len(calls), f"the {len(calls)} fp32 calls launched {launches} kernels")
+    kernel_ms, launches = _checked_kernel_time(
+        lambda: [conv_block.conv3x3(*args, slab=slab) for _, args, slab, _ in calls],
+        len(calls), f"the {len(calls)} fp32 conv3x3 calls", n=10)
     r["device_ms"] = total
+    kernel = ("kernel time not measured (the profiler's window had no device events)"
+              if kernel_ms is None else f"by torch.profiler {kernel_ms:.4f} ms of kernel time "
+              f"in {launches:g} launches ({100 * r['bound_ms'] / kernel_ms:.1f}%)")
     print(f"[3 conv3x3 fp32 device] the {len(calls)} shapes: {total:.4f} ms by events queued "
           f"behind a spin kernel, {100 * r['bound_ms'] / total:.1f}% of the bound "
-          f"{r['bound_ms']:.4f} ms; by torch.profiler {kernel_ms:.4f} ms of kernel time in "
-          f"{launches} launches ({100 * r['bound_ms'] / kernel_ms:.1f}%)")
+          f"{r['bound_ms']:.4f} ms; {kernel}")
 
 
 def on_plain_path(_build, measure, *wrappers):
@@ -962,13 +976,14 @@ def _device_and_kernel(fn, r: dict, tag: str) -> str:
     kernel) and kernel time (torch.profiler) to r; returns them as text,
     with the share of r's bound."""
     r["device_ms"] = _queued_ms(fn)
-    kernel_ms, launches = _kernel_time(fn, n=RUNS)
-    r["kernel_ms"] = kernel_ms if launches else None
-    check(launches == 1, f"{tag}: {launches} kernel launches a call (want 1)")
+    kernel_ms, _ = _checked_kernel_time(fn, 1, tag)
+    r["kernel_ms"] = kernel_ms
+    kernel = ("kernel time not measured (the profiler's window had no device events)"
+              if kernel_ms is None else f"{kernel_ms:.4f} ms of kernel time in 1 launch by "
+              f"torch.profiler ({100 * r['bound_ms'] / kernel_ms:.1f}% of the bound)")
     return (f"{r['device_ms']:.4f} ms device (events queued behind a spin kernel, the card's "
             f"launch latency included; {100 * r['bound_ms'] / r['device_ms']:.1f}% of the "
-            f"bound), {kernel_ms:.4f} ms of kernel time in {launches} launch by torch.profiler "
-            f"({100 * r['bound_ms'] / kernel_ms:.1f}% of the bound)")
+            f"bound), {kernel}")
 
 
 def phase_stereo_kernels(corr, sa_ops, sa, upcat) -> dict:
@@ -1303,6 +1318,28 @@ def _kernel_time(fn, n: int = 10):
     launches = round(st["launches"] / n)
     mean_us = sum(t for t, _ in st["by_name"].values()) / max(st["launches"], 1)
     return mean_us * launches / 1e3, launches
+
+
+def _checked_kernel_time(fn, want: int, tag: str, n: int = RUNS):
+    """(kernel ms or None, launches) of one call of fn, failing unless the
+    call launches ``want`` kernels. The launches are torch.profiler's
+    (:func:`_kernel_time`); where its window stays without device events
+    (see :func:`_profile_stats`), they are the kernel wrappers' launch
+    counts over n more calls, and the kernel time is left unmeasured."""
+    kernel_ms, launches = _kernel_time(fn, n=n)
+    if launches == 0:
+        from scenedepthestimation_tpu_torch.ops.cuda import _build
+
+        before = sum(_build.LAUNCHES.values())
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        counted = sum(_build.LAUNCHES.values()) - before
+        print(f"[{tag}] the profiler's window had no device events; the wrappers counted "
+              f"{counted} launches in {n} calls")
+        kernel_ms, launches = None, counted / n
+    check(launches == want, f"{tag}: {launches:g} kernel launches a call (want {want})")
+    return kernel_ms, launches
 
 
 def _copy_report(forward, feat_shape, n: int = 3):
@@ -3365,24 +3402,20 @@ def _cycling(fn, sets: list):
 
 
 def _bwd_times(name, kernel, plain, autograd_fn, sets: list, r: dict, nbytes_: float,
-               ops: float, empty_window_ok: bool = False, kind: str = "fp32",
-               profile: bool = True) -> str:
+               ops: float, kind: str = "fp32", profile: bool = True) -> str:
     """Times one backward call (by call, device, kernel), its plain
     version's and the autograd of the plain forward's (given the set's
     gradient), each cycling through the argument ``sets`` (:func:`_cold_sets`);
     adds them and the bound (operations at the peak rate of ``kind``) to r;
-    returns the line's text. With ``empty_window_ok`` a profiler window
-    without device events leaves the kernel time unmeasured (None in r)
-    instead of failing the launch check; without ``profile`` no window is
-    taken (the caller measures the kernel time in another process)."""
+    returns the line's text. The call must launch one kernel
+    (:func:`_checked_kernel_time`: a profiler window without device events
+    leaves the kernel time unmeasured, None in r); without ``profile`` no
+    window is taken (the caller measures the kernel time in another
+    process)."""
     fn = _cycling(kernel, sets)
     t = {"ms": time_ms(fn), "plain_ms": time_ms(_cycling(plain, sets)),
          "autograd_ms": time_ms(_cycling(autograd_fn, sets)), "device_ms": _queued_ms(fn)}
-    kernel_ms, launches = _kernel_time(fn, n=RUNS) if profile else (None, 0)
-    if (empty_window_ok or not profile) and launches == 0:
-        kernel_ms = None
-    else:
-        check(launches == 1, f"{name}: {launches} kernel launches a call (want 1)")
+    kernel_ms = _checked_kernel_time(fn, 1, name)[0] if profile else None
     bound, by = bound_ms(nbytes_, ops, kind)
     for k, v in t.items():
         r[k] = r.get(k, 0.0) + v
@@ -3602,8 +3635,8 @@ def _cli_lines(cli, *argv) -> list:
 
 def _train_kernel_class(name: str) -> str:
     n = name.lower()
-    if any(k in n for k in ("correlation_bwd", "soft_argmin_bwd", "upsample_concat_bwd",
-                            "conv3x3_dpre", "conv3x3_dx", "conv3x3_dw")):
+    if any(k in n for k in ("correlation_bwd", "correlation_gram_bwd", "soft_argmin_bwd",
+                            "upsample_concat_bwd", "conv3x3_dpre", "conv3x3_dx", "conv3x3_dw")):
         return "backward kernels"
     if any(k in n for k in ("correlation_kernel", "correlation_gram", "soft_argmin",
                             "upsample_concat_kernel", "conv3x3", "arrange")):
@@ -4275,7 +4308,7 @@ def phase_mono_training(sdt, _build, conv_block, upcat) -> dict:
             "upsample_concat_bwd", upcat.upsample_concat_backward,
             upcat.upsample_concat_backward_plain,
             lambda g_, _: torch.autograd.grad(out, (x, skip), g_, retain_graph=True), sets, r,
-            moved, 3 * x.numel(), empty_window_ok=True)
+            moved, 3 * x.numel())
         print(f"[21 upsample_concat_bwd] {name} g {tuple(g.shape)}: exact; {text}")
 
     # One step at b12 in each mode: the kernel path, the card's plain path,
@@ -4492,8 +4525,9 @@ def phase_mono_training(sdt, _build, conv_block, upcat) -> dict:
 # concat's (D + C)-wide bf16 gradient.
 GRAM_BWD_MAIN = (BF16_B, 96, 288, 64, 48)
 # (shape, layout): _c128's C = 128 (two channel chunks), latency_d96's D =
-# 24 at b2 (one D chunk of 32), D = 100 (three D chunks of 48), W off the
-# 64-column segment (65; 130 past two), C = 5 and views off 16 bytes (the
+# 24 at b2 (one D chunk, three k16 slices), D = 100 (three D chunks of 40,
+# d_fl's g rows apart), W off the 64-column tile (65 and 70 one past it,
+# 130 two past; 37 and 8 inside one), C = 5 and views off 16 bytes (the
 # scalar staging).
 GRAM_BWD_EXTRA = [((BF16_B, 96, 288, 128, 48), "interleaved"),
                   ((D96_B, 96, 288, 64, 24), "interleaved"),
@@ -4533,13 +4567,14 @@ for m in modes:
     torch.cuda.reset_peak_memory_stats()
     r = benchmark.run_train_bench(cs.BF16_CONFIG, mode=m, iters=10)
     rows.append({**r, "peak_mb": torch.cuda.max_memory_allocated() / 1e6})
+kernel_ms = cs._bf16_kernel_ms()
 rows = [{**r, **cs._train_busy(benchmark, m, config=cs.BF16_CONFIG)} for r, m in zip(rows, modes)]
 base = configs.get(cs.BF16_CONFIG)
 makes = (train.make_stereo_train_step, train.make_stereo_selfsup_train_step)
 prof = {m: cs._step_profile(train, base, make, cs._train_batch(base, 3, m != "selfsup"),
                             f"{m} bf16 bench step", r, phase=22)
         for r, m, make in zip(rows, modes, makes)}
-print(json.dumps({"rows": rows, "profile": prof, "kernel_ms": cs._bf16_kernel_ms()}))
+print(json.dumps({"rows": rows, "profile": prof, "kernel_ms": kernel_ms}))
 """
 
 
@@ -4594,7 +4629,8 @@ def _gram_bwd_case(gram, gen, shape, layout):
 def _bf16_kernel_ms() -> dict:
     """Kernel 7b's kernel time at config 5's step shape and 2c's summed over
     the three joins, by torch.profiler, each call on inputs outside the
-    L2."""
+    L2 and launching one kernel (None where a window had no device
+    events)."""
     from scenedepthestimation_tpu_torch.ops.cuda import correlation_gram as gram
     from scenedepthestimation_tpu_torch.ops.cuda import upsample_concat as upcat
 
@@ -4602,8 +4638,8 @@ def _bf16_kernel_ms() -> dict:
     args = _gram_bwd_args(gen, GRAM_BWD_MAIN, "interleaved")
     sets = _cold_sets(args, lambda: _gram_bwd_args(gen, GRAM_BWD_MAIN, "interleaved"),
                       nbytes(args[0][..., 0]) * args[3] + 4 * nbytes(args[1]))
-    out = {"correlation_gram_bwd": _kernel_time(_cycling(gram.correlation_gram_backward, sets),
-                                                n=RUNS)[0]}
+    out = {"correlation_gram_bwd": _checked_kernel_time(
+        _cycling(gram.correlation_gram_backward, sets), 1, "correlation_gram_bwd")[0]}
     rng = np.random.default_rng(23)
     out["upsample_concat_bwd_bf16"] = 0.0
     for _, h, w, c1, c2 in BF16_UPCAT_SHAPES:
@@ -4611,8 +4647,10 @@ def _bf16_kernel_ms() -> dict:
         first = (_rand(rng, shape, 1.0, torch.bfloat16), c1)
         sets = _cold_sets(first, lambda: (_rand(rng, shape, 1.0, torch.bfloat16), c1),
                           2 * nbytes(first[0]))
-        out["upsample_concat_bwd_bf16"] += _kernel_time(
-            _cycling(upcat.upsample_concat_backward, sets), n=RUNS)[0]
+        ms = _checked_kernel_time(_cycling(upcat.upsample_concat_backward, sets), 1,
+                                  "upsample_concat_bwd_bf16")[0]
+        prev = out["upsample_concat_bwd_bf16"]
+        out["upsample_concat_bwd_bf16"] = None if ms is None or prev is None else prev + ms
     return out
 
 
@@ -4620,16 +4658,16 @@ def _bf16_train_kernels(gram, upcat) -> dict:
     """Kernels 7b and 2c at config 5's step shapes and off them, each
     against its plain version, with the times and bounds; and cuDNN's bf16
     conv with its bias against Flax's order (the conv, then the bias)."""
-    from scenedepthestimation_tpu_torch.ops.cuda.correlation import backward_plan
-
     gen = torch.Generator(device="cuda").manual_seed(22)
     res = {}
     log = _nvcc_log(gram._build)
-    for k in ("correlation_bwd_kernel", "upsample_concat_bwd_kernel"):
+    # 7b has one entry function; 2c an instantiation for each of fp32 and
+    # bf16 vectors.
+    for k, n in (("correlation_gram_bwd_kernel", 1), ("upsample_concat_bwd_kernel", 2)):
         lines = ptxas_lines(log, k)
         print(f"[22 {k} ptxas] " + "; ".join(
             f"{a} {r_} registers, {sp} bytes of spill stores" for a, r_, sp in lines))
-        check(len(lines) >= 2 and all(sp == 0 for _, _, sp in lines), f"{k} spills registers")
+        check(len(lines) >= n and all(sp == 0 for _, _, sp in lines), f"{k} spills registers")
 
     r = res["correlation_gram_bwd"] = {}
     args, err, sp, ok = _gram_bwd_case(gram, gen, GRAM_BWD_MAIN, "interleaved")
@@ -4638,7 +4676,7 @@ def _bf16_train_kernels(gram, upcat) -> dict:
     r["err"] = err
     g, fl, fr, d = args
     b, h, w, c, _ = GRAM_BWD_MAIN
-    plan = backward_plan(w, c, d, torch.bfloat16)
+    plan = gram.backward_plan(w, c, d)
     pair = fl._base.detach().clone().requires_grad_()
     pl, pr = pair.view(b, 2, h, w, c)[:, 0], pair.view(b, 2, h, w, c)[:, 1]
     out = gram.correlation_gram_plain(pl, pr, d)
@@ -4654,18 +4692,20 @@ def _bf16_train_kernels(gram, upcat) -> dict:
     print(f"[22 correlation_gram_bwd] {GRAM_BWD_MAIN[:4]} D={d} bf16, the tower's interleaved "
           f"halves and the concat's gradient slice (W stride {g.stride(2)}): max|err| {err:.3g} "
           f"({sp:.2f} bf16 spacings of the largest magnitude; one spacing + 1e-6 each), two "
-          f"calls equal bit for bit; {b * h * plan['w_segments']} units on persistent blocks of "
-          f"{plan['threads']} threads (as many an SM as fit), D chunk {plan['d_tile']} x "
-          f"{plan['d_tiles']}, "
-          f"{plan['shared_bytes']} bytes of shared memory a block; {text}; library = autograd "
-          "of correlation_gram_plain's banded torch.matmul")
+          f"calls equal bit for bit; {b * h * plan['w_tiles']} units ({plan['w_tile']}-wide W "
+          f"tiles) on persistent blocks of {plan['warps']} warps, D chunk {plan['d_tile']} x "
+          f"{plan['d_tiles']}, {plan['slices']} k16 slices a 16-row tile over a band "
+          f"{plan['band']} wide, window {plan['window']} rows, {plan['stages']} stages, "
+          f"{plan['shared_bytes']} bytes of shared memory a block ({plan['smem_blocks_per_sm']} "
+          f"an SM); {text}; library = autograd of correlation_gram_plain's banded torch.matmul")
     for shape, layout in GRAM_BWD_EXTRA:
         a_, err, sp, ok = _gram_bwd_case(gram, gen, shape, layout)
         _bit_stable(f"correlation_gram_bwd {shape}", gram.correlation_gram_backward, a_)
-        plan = backward_plan(shape[2], shape[3], shape[4], torch.bfloat16)
+        plan = gram.backward_plan(shape[2], shape[3], shape[4])
         print(f"[22 correlation_gram_bwd extra] {shape[:4]} D={shape[4]} {layout}: max|err| "
               f"{err:.3g} ({sp:.2f} spacings), bit-stable; D chunk {plan['d_tile']} x "
-              f"{plan['d_tiles']}, channel chunks {plan['chunks']}")
+              f"{plan['d_tiles']}, {plan['slices']} k16 slices, channel chunks "
+              f"{plan['k_chunks']}, {plan['stages']} stages")
         check(ok, f"correlation_gram_bwd {shape} {layout} disagrees with its plain version")
 
     rng = np.random.default_rng(22)
@@ -4860,12 +4900,13 @@ def phase_bf16_training(sdt, _build, gram, sa, upcat) -> dict:
     for row in bench["rows"]:
         print(f"[22 run_train_bench] {json.dumps(row)}")
     # The kernel times of the table come from the bench process, whose
-    # profiler windows are not empty.
+    # profiler windows this late in the run's own process may be empty.
     for name, kernel_ms in bench["kernel_ms"].items():
         r = res[name]
-        check(kernel_ms > 0, f"{name}: no kernel time in the bench process's profiler window")
-        print(f"[22 {name} kernel time] in the bench process: {kernel_ms:.4f} ms "
-              f"({100 * r['bound_ms'] / kernel_ms:.1f}% of the {r['bound_ms']:.4f} ms bound)")
+        print(f"[22 {name} kernel time] in the bench process: " + (
+            "not measured (its profiler window had no device events)" if kernel_ms is None else
+            f"{kernel_ms:.4f} ms ({100 * r['bound_ms'] / kernel_ms:.1f}% of the "
+            f"{r['bound_ms']:.4f} ms bound)"))
         r["kernel_ms"] = kernel_ms
     print(f"[22 bf16 training] {time.perf_counter() - t_phase:.1f} s (the bench process "
           f"{bench_s:.1f} s)")
@@ -5021,10 +5062,39 @@ def measure_stereo_train(root: str, iters: int) -> int:
     return 0
 
 
+def measure_gram_bwd(root: str, runs: int) -> int:
+    """The --measure-gram-bwd mode: kernel 7b of the package under root at
+    GRAM_BWD_MAIN, as the module docstring says."""
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    sys.path.insert(0, os.path.abspath(root))
+    import scenedepthestimation_tpu_torch as sdt
+    from scenedepthestimation_tpu_torch.ops.cuda import correlation_gram as gram
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    args = _gram_bwd_args(gen, GRAM_BWD_MAIN, "interleaved")
+    moved = nbytes(args[0][..., 0]) * args[3] + 4 * nbytes(args[1])
+    sets = _cold_sets(args, lambda: _gram_bwd_args(gen, GRAM_BWD_MAIN, "interleaved"), moved)
+    got = gram.correlation_gram_backward(*args)
+    ref = gram.correlation_gram_backward_plain(*args)
+    sp = max(((x.float() - y.float()).abs().max() / _bf16_spacing(y.float().abs().max())).item()
+             for x, y in zip(got, ref))
+    call = _cycling(gram.correlation_gram_backward, sets)
+    out = {"ms": time_ms(call, runs=runs), "device_ms": _queued_ms(call, runs=runs),
+           "kernel_ms": _kernel_time(call, n=runs)[0], "bound_ms": bound_ms(moved, 0.0, "bf16")[0],
+           "spacings": sp, "argument_sets": len(sets)}
+    print(json.dumps({"package": os.path.dirname(sdt.__file__), "nvidia_smi": smi,
+                      "shape": GRAM_BWD_MAIN, "kernels": {"correlation_gram_bwd": out}}))
+    return 0
+
+
 def main() -> int:
     modes = {"--measure": (measure, 200), "--measure-b1": (measure_b1, 200),
              "--measure-train": (measure_train, 10),
-             "--measure-stereo-train": (measure_stereo_train, 20)}
+             "--measure-stereo-train": (measure_stereo_train, 20),
+             "--measure-gram-bwd": (measure_gram_bwd, RUNS)}
     if sys.argv[1:2] and sys.argv[1] in modes:
         fn, default = modes[sys.argv[1]]
         rest = sys.argv[2:]
@@ -5222,18 +5292,19 @@ def main() -> int:
                        "plain_ms is autograd of the plain forward for the weight and the sum "
                        "for the bias; library_ms is cuDNN's convolution_backward for weight "
                        "and bias (TF32 off)"),
-        "correlation_gram_bwd": ("scenedepthestimation_tpu_torch/csrc/correlation_bwd.cu",
+        "correlation_gram_bwd": ("scenedepthestimation_tpu_torch/csrc/correlation_gram_bwd.cu",
                                  "scenedepthestimation_tpu/ops/correlation.py:76 (_correlation_gram, "
                                  "differentiated by XLA in the JAX bf16 train steps; its Pallas "
                                  "counterparts ops/pallas/correlation_v2.py:80 and "
                                  "correlation_v3.py:69 have no VJP)",
                                  f"{BF16_CONFIG} b16 train step, g (16, 96, 288, 48) bf16 read "
                                  "through the concat's strides, the tower's interleaved halves "
-                                 "(16, 96, 288, 64) bf16 (correlation_bwd_kernel<bf16>: "
-                                 "correlation_bwd's staged rows and sliding register tiles, bf16 "
-                                 "staged and widened on the shared loads, fp32 sums, one rounding); "
-                                 "plain_ms is the explicit plain backward; library_ms is autograd "
-                                 "of correlation_gram_plain's banded torch.matmul"),
+                                 "(16, 96, 288, 64) bf16 (correlation_gram_bwd_kernel: both "
+                                 "gradients as transposed banded Grams on mma.sync, the band's "
+                                 "fragments gathered from g's staged rows, the windows read by "
+                                 "ldmatrix.trans, fp32 sums, one rounding); plain_ms is the "
+                                 "explicit plain backward; library_ms is autograd of "
+                                 "correlation_gram_plain's banded torch.matmul"),
         "upsample_concat_bwd_bf16": ("scenedepthestimation_tpu_torch/csrc/upsample_concat.cu",
                                      "scenedepthestimation_tpu/ops/upsample.py:141 "
                                      "(upsample_concat, differentiated by XLA in the JAX bf16 "

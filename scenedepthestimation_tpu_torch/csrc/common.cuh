@@ -104,6 +104,18 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const uint16_t* 
       : "r"(addr));
 }
 
+// The inverse of ldsm_x4: lanes 8j .. 8j+7 point at the 8 rows of matrix j
+// (16 bytes each), and r_j holds its elements (row lane / 4, columns
+// 2 (lane % 4), +1): the layout of an mma.m16n8 C fragment packed to bf16
+// pairs.
+__device__ __forceinline__ void stsm_x4(uint16_t* p, uint32_t r0, uint32_t r1, uint32_t r2,
+                                        uint32_t r3) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
 // 16 bytes from device memory to shared memory without passing through
 // registers; with `valid` false the 16 bytes are zero-filled and nothing
 // is read (src must still be a device address).

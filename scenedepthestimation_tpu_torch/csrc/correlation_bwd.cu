@@ -3,29 +3,23 @@
 // with respect to both feature maps, given g = dL/dcost:
 //   d_fl[w, c] = 1/C sum_d g[w, d] fr[w - d, c]          (w - d >= 0)
 //   d_fr[w, c] = 1/C sum_d g[w + d, d] fl[w + d, c]      (w + d < W)
-// (every term inside one (b, h) row), in fp32 or bf16.
+// (every term inside one (b, h) row), in fp32. (The banded Gram's bf16
+// backward is correlation_gram_bwd.cu, on the tensor cores.)
 //
-// fp32 replaces the TPU kernel's analytic VJP, scenedepthestimation_tpu/
+// It replaces the TPU kernel's analytic VJP, scenedepthestimation_tpu/
 // ops/correlation.py::_corr_bwd (registered on _correlation_pallas_op with
-// jax.custom_vjp), which XLA runs as D shifted multiply-adds. bf16 is the
-// backward of the banded-Gram cost (correlation_gram.cu, TPU kernels 7 and
-// 8): it replaces what XLA derives for the JAX package's bf16 form,
-// ops/correlation.py::_correlation_gram (the transposed banded dot_general).
-// bf16 inputs, fp32 sums, each output rounded to bf16 once, after the 1/C.
+// jax.custom_vjp), which XLA runs as D shifted multiply-adds.
 //
 // What bounds it on an H100: bytes. It reads g, fl and fr once and writes
-// d_fl and d_fr once (40 MB at stereo_256x512_b4's (4, 64, 128, 64) D = 48
-// fp32, 12 us at 3.35 TB/s; 269 MB at config 5's (16, 96, 288, 64) D = 48
-// bf16, 80 us); its 0.4 (5.4) GFLOP take 6 (81) us on the CUDA cores, so
-// the products must run near the CUDA cores' rate, fed from shared memory
-// at well under one shared load per 4 FMAs. (bf16 on the tensor cores, as
-// the transposed banded Gram that the forward runs on mma.sync, would take
-// 5.5 us of products: a later redesign.)
+// d_fl and d_fr once (40 MB at stereo_256x512_b4's (4, 64, 128, 64) D = 48,
+// 12 us at 3.35 TB/s); its 0.4 GFLOP take 6 us on the CUDA cores, so the
+// products must run near the CUDA cores' rate, fed from shared memory at
+// well under one shared load per 4 FMAs.
 //
 // Design: units of a row's 64-column W segment, both outputs in a unit; no
 // atomics, the same bits on every run.
 //   * Staging (16-byte cp.async, zero-filled outside [0, W) and past C
-//     or D), in the inputs' type: fr's columns [w0 - d0 - DT + 1, w0 + 64 -
+//     or D): fr's columns [w0 - d0 - DT + 1, w0 + 64 -
 //     d0) and fl's [w0 + d0, w0 + 63 + d0 + DT), 64 channels a column,
 //     channel-minor; g's rows [w0 + d0, w0 + 63 + d0 + DT) for the D chunk
 //     [d0, d0 + DT), read through its strides (the aggregation's concat
@@ -33,13 +27,11 @@
 //     D + C): staged once for both outputs, since d_fl's rows [w0, w0 + 64)
 //     are its first 64 when d0 = 0. g's rows keep their 16-byte slots
 //     XORed by (row / 8) % 2, so a warp's two pixel groups, 8 rows apart,
-//     read distinct banks. bf16 is widened to fp32 on the shared loads.
-//   * Persistent: as many blocks an SM as fit walk the units (blockIdx.x, +
-//     gridDim.x, ...) with two stages, the next unit's staging in flight
-//     while they sum the current one: one block an SM in fp32, whose two
-//     stages take 153 KB (at config 4, 512 units on 132 SMs); two in bf16,
-//     76 KB each, with the 128 registers a thread both fill the register
-//     file (config 5: 7,680 units on 264 blocks).
+//     read distinct banks.
+//   * Persistent: as many blocks an SM as fit (one, whose two stages take
+//     153 KB) walk the units (blockIdx.x, + gridDim.x, ...) with two
+//     stages, the next unit's staging in flight while they sum the current
+//     one (config 4: 512 units on 132 SMs).
 //   * Threads 0-127 sum d_fl, 128-255 d_fr. Thread (p, q) owns the 8 x 4
 //     register tile of pixels 8p .. 8p+7 and channels 4q .. 4q+3 (lanes q
 //     fastest: a warp's g reads are two broadcast addresses). Pixel i at
@@ -52,9 +44,9 @@
 //     d-major copy of g for both outputs cost a fifth of the time).
 //   * d ascends for every output element, across D chunks too, and the
 //     1/C comes last, as in the JAX VJP; sums are plain fp32 FMAs (no TF32).
-//   * D larger than 48 runs in chunks of DT (a multiple of 8 in fp32, of 16
-//     in bf16, so that g's 16-byte slots pair up for the XOR; at most 48;
-//     D = 48 is one), each restaging the windows and g (d_fl's g rows then
+//   * D larger than 48 runs in chunks of DT (a multiple of 8, so that g's
+//     16-byte slots pair up for the XOR; at most 48; D = 48 is one), each
+//     restaging the windows and g (d_fl's g rows then
 //     apart); C larger than 64 in 64-channel chunks, each with its outputs.
 // C not a multiple of a 16-byte vector, views whose rows are not 16-byte
 // aligned and a gradient whose rows are not take scalar staging into the
@@ -72,8 +64,8 @@ constexpr int kHalf = kSeg / kPX * kCG; // threads per output
 constexpr int kThreads = 2 * kHalf;
 constexpr int kDTMax = 48;              // disparities per D chunk
 
-// T: float or __nv_bfloat16, the inputs' and the outputs' type; a 16-byte
-// copy moves vec_elems<T>() of them.
+// T: the inputs' and the outputs' type (float); a 16-byte copy moves
+// vec_elems<T>() of them.
 template <typename T>
 struct CorrBwdArgs {
   const T* g;
@@ -111,22 +103,14 @@ __device__ __forceinline__ int gslot(int r, int k, int dt) {
   return r * dt + (((k / v) ^ ((r >> 3) & 1)) * v) + (k % v);
 }
 
-// Four consecutive values from shared memory as fp32 (bf16 widened).
+// Four consecutive values from shared memory.
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-}
 
-// Four values to device memory, rounded once to T.
+// Four values to device memory.
 __device__ __forceinline__ void st4(float* p, float a, float b, float c, float d) {
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void st4(__nv_bfloat16* p, float a, float b, float c, float d) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16x2(a, b), pack_bf16x2(c, d));
 }
 
 __device__ __forceinline__ float lane4(const float4& v, int k) {
@@ -325,7 +309,7 @@ __global__ void __launch_bounds__(kThreads, 1) correlation_bwd_kernel(const Corr
 bool aligned16(const void* p) { return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0; }
 
 // The D chunk: the fewest chunks of at most kDTMax disparities, each
-// ceil(D / chunks) rounded up to a multiple of two 16-byte vectors (8 fp32, 16 bf16).
+// ceil(D / chunks) rounded up to a multiple of two 16-byte vectors (8 fp32).
 template <typename T>
 int d_chunk(int D) {
   const int chunks = (D + kDTMax - 1) / kDTMax, m = 2 * vec_elems<T>();
@@ -386,27 +370,19 @@ cudaError_t launch_bwd(const void* g, long long sgb, long long sgh, long long sg
 
 // g (B, H, W, D) with strides sgb, sgh, sgw (elements) and D stride 1;
 // fl, fr (B, H, W, C) views with contiguous (W, C) rows and batch strides
-// sbl, sbr; d_fl, d_fr (B, H, W, C) contiguous, written whole; all fp32
-// (dtype 0) or all bf16 (dtype 1). The D chunk is the fewest chunks of at
-// most 48 disparities, each ceil(D / chunks) rounded up to a multiple of 8
-// (fp32) or 16 (bf16) (ops/cuda/correlation.py backward_plan); as many
-// blocks an SM as fit.
+// sbl, sbr; d_fl, d_fr (B, H, W, C) contiguous, written whole; all fp32.
+// The D chunk is the fewest chunks of at most 48 disparities, each
+// ceil(D / chunks) rounded up to a multiple of 8 (ops/cuda/correlation.py
+// backward_plan); as many blocks an SM as fit.
 extern "C" int sde_correlation_bwd(const void* g, long long sgb, long long sgh, long long sgw,
                                    const void* fl, long long sbl, const void* fr, long long sbr,
                                    void* dfl, void* dfr, int B, int H, int W, int C, int D,
-                                   int dtype, int device, void* stream) {
+                                   int device, void* stream) {
   cudaError_t err = sde::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B < 1 || H < 1 || W < 1 || C < 1 || D < 1 || device < 0 || device >= sde::kMaxDevices)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    err = sde::launch_bwd<float>(g, sgb, sgh, sgw, fl, sbl, fr, sbr, dfl, dfr, B, H, W, C, D,
-                                 device, s);
-  else if (dtype == 1)
-    err = sde::launch_bwd<__nv_bfloat16>(g, sgb, sgh, sgw, fl, sbl, fr, sbr, dfl, dfr, B, H, W,
-                                         C, D, device, s);
-  else
-    err = cudaErrorInvalidValue;
+  err = sde::launch_bwd<float>(g, sgb, sgh, sgw, fl, sbl, fr, sbr, dfl, dfr, B, H, W, C, D,
+                               device, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }

@@ -13,8 +13,9 @@ launch raises. The wrappers that launch kernels (``conv_block``,
 ``upsample_concat``, ``correlation``, ``correlation_gram``,
 ``soft_argmin``, ``fused_tail``, ``winograd``, and the backward kernels
 ``conv3x3_dpre``, ``conv3x3_dx_slab``, ``conv3x3_dx``,
-``conv3x3_dx_fold``, ``conv3x3_dw``, ``correlation_bwd``,
-``correlation_gram_bwd``, ``soft_argmin_bwd``, ``upsample_concat_bwd`` and
+``conv3x3_dx_fold``, ``conv3x3_dw``, ``correlation_bwd`` (fp32),
+``correlation_gram_bwd`` (bf16, ``sde_correlation_gram_bwd``),
+``soft_argmin_bwd``, ``upsample_concat_bwd`` and
 ``upsample_concat_bwd_bf16``) add one to
 :data:`LAUNCHES` per launch (``conv3x3_dw`` one a call, for its two
 launches: the partial sums and their reduce), so a run can show that its
@@ -100,11 +101,13 @@ _SIGNATURES = {
     # dtype, device, stream
     "sde_correlation": (_P, _L, _P, _L, _P) + (_I,) * 8 + (_P,),
     # g, g's batch, row and column strides, fl, fl batch stride, fr, fr batch
-    # stride, d_fl, d_fr, B, H, W, C, D, dtype, device, stream
-    "sde_correlation_bwd": (_P, _L, _L, _L, _P, _L, _P, _L, _P, _P) + (_I,) * 7 + (_P,),
+    # stride, d_fl, d_fr, B, H, W, C, D, device, stream (fp32)
+    "sde_correlation_bwd": (_P, _L, _L, _L, _P, _L, _P, _L, _P, _P) + (_I,) * 6 + (_P,),
     # fl, fl batch stride, fr, fr batch stride, out, B, H, W, C, D, td,
     # device, stream
     "sde_correlation_gram": (_P, _L, _P, _L, _P) + (_I,) * 7 + (_P,),
+    # as sde_correlation_bwd, bf16
+    "sde_correlation_gram_bwd": (_P, _L, _L, _L, _P, _L, _P, _L, _P, _P) + (_I,) * 6 + (_P,),
     # cost, out, n, D, dtype, scale, depth, fb, lanes, vecs, device, stream
     "sde_soft_argmin": (_P, _P, _L, _I, _I, _F, _I, _F, _I, _I, _I, _P),
     # grad, cost, dcost, n, D, scale, lanes, vecs, device, stream

@@ -16,8 +16,9 @@ fp32; its blocking :func:`backward_plan`): the counterpart of the JAX
 package's analytic VJP ``scenedepthestimation_tpu/ops/correlation.py::
 _corr_bwd``, registered as the op's autograd formula.
 :func:`correlation_backward_plain` is that VJP written in PyTorch, in its
-order of sums. The same kernel in bf16 is the banded Gram's backward
-(``correlation_gram.correlation_gram_backward``).
+order of sums; the banded Gram's bf16 backward
+(``correlation_gram.correlation_gram_backward``) shares it as its plain
+version.
 """
 
 from __future__ import annotations
@@ -74,29 +75,26 @@ def tile_plan(w: int, c: int, d: int) -> dict:
 
 # The backward kernel's blocking (csrc/correlation_bwd.cu): units of a row's
 # W segment of BWD_SEGMENT columns with both outputs, walked by persistent
-# blocks (as many an SM as fit: one in fp32, two in bf16) with the next
-# unit's staging in flight; a thread a BWD_PIXELS x 4 register tile of one
-# output, sliding along d; BWD_CHUNK channels a chunk; D in chunks of at
-# most BWD_MAX_D, each a multiple of two 16-byte vectors (8 fp32, 16 bf16).
+# blocks (one an SM) with the next unit's staging in flight; a thread a
+# BWD_PIXELS x 4 register tile of one output, sliding along d; BWD_CHUNK
+# channels a chunk; D in chunks of at most BWD_MAX_D, each a multiple of 8.
 BWD_SEGMENT = 64
 BWD_PIXELS = 8
 BWD_CHUNK = 64
 BWD_MAX_D = 48
 
 
-def backward_plan(w: int, c: int, d: int, dtype: torch.dtype = torch.float32) -> dict:
-    """The backward kernel's blocking for a (W, C) row and D disparities in
-    ``dtype`` (float32 or bfloat16): the W segments, the register tile, the
-    D chunk (the fewest chunks of at most BWD_MAX_D, each rounded up to a
-    multiple of 8 in fp32, 16 in bf16: tile, tiles; D = 48 is one chunk of
-    48), the threads a block (half for each output), the columns of each
-    view's window and the rows of g a block stages, the channel chunks and
-    the shared memory a block takes, in bytes (two stages of the windows,
-    g's rows and, with more than one D chunk, d_fl's own rows of g)."""
-    esize = torch.empty((), dtype=dtype).element_size()
-    mult = 2 * 16 // esize
+def backward_plan(w: int, c: int, d: int) -> dict:
+    """The fp32 backward kernel's blocking for a (W, C) row and D
+    disparities: the W segments, the register tile, the D chunk (the fewest
+    chunks of at most BWD_MAX_D, each rounded up to a multiple of 8: tile,
+    tiles; D = 48 is one chunk of 48), the threads a block (half for each
+    output), the columns of each view's window and the rows of g a block
+    stages, the channel chunks and the shared memory a block takes, in
+    bytes (two stages of the windows, g's rows and, with more than one D
+    chunk, d_fl's own rows of g)."""
     tiles = -(-d // BWD_MAX_D)
-    dt = -(-(-(-d // tiles)) // mult) * mult
+    dt = -(-(-(-d // tiles)) // 8) * 8
     nd = -(-d // dt)
     window = BWD_SEGMENT + dt - 1
     stage = 2 * window * BWD_CHUNK + window * dt + (BWD_SEGMENT * dt if nd > 1 else 0)
@@ -110,7 +108,7 @@ def backward_plan(w: int, c: int, d: int, dtype: torch.dtype = torch.float32) ->
         "window": window,
         "chunk": BWD_CHUNK,
         "chunks": -(-c // BWD_CHUNK),
-        "shared_bytes": esize * 2 * stage,
+        "shared_bytes": 4 * 2 * stage,
     }
 
 
@@ -223,21 +221,15 @@ def correlation_backward_plain(
     return (d_fl * inv_c).to(f_left.dtype), (d_fr * inv_c).to(f_right.dtype)
 
 
-def _grad_strides(grad: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
-    """(g, its batch, row and column strides) with a D stride of 1, as the
-    backward kernel reads it; another layout is copied (``contiguous``)."""
-    if grad.shape[-1] > 1 and grad.stride(-1) != 1:
-        grad = grad.contiguous()
-    return grad, tuple(grad.stride()[:3])
-
-
-def launch_backward(
+def backward_operands(
     grad: torch.Tensor, f_left: torch.Tensor, f_right: torch.Tensor, max_disp: int, name: str
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(d_fl, d_fr) from the backward kernel on CUDA tensors of one dtype,
-    float32 or bfloat16 (``grad`` read through its strides, so the slice the
-    aggregation's concat hands back is not copied; the features as
-    :func:`correlation` reads them); counts one launch under ``name``."""
+) -> tuple:
+    """What a backward kernel of the cost volume reads and writes, checked:
+    (g, its batch, row and column strides, fl's and fr's batch strides,
+    d_fl, d_fr). ``grad`` is read through its strides with a D stride of 1
+    (the slice the aggregation's concat hands back is not copied; another
+    layout is), the features as :func:`correlation` reads them; d_fl and
+    d_fr are new (B, H, W, C) tensors of the features' dtype."""
     _check(f_left, f_right, max_disp)
     b, h, w, c = f_left.shape
     if tuple(grad.shape) != (b, h, w, max_disp) or grad.device != f_left.device:
@@ -245,20 +237,39 @@ def launch_backward(
             f"grad must be ({b}, {h}, {w}, {max_disp}) on {f_left.device}, got "
             f"{tuple(grad.shape)} on {grad.device}"
         )
+    if f_right.device != f_left.device:
+        raise ValueError(f"f_right is on {f_right.device}, f_left on {f_left.device}")
     sbl = batch_stride(f_left, name)
     sbr = batch_stride(f_right, name)
-    grad, (sgb, sgh, sgw) = _grad_strides(grad)
+    if max_disp > 1 and grad.stride(-1) != 1:
+        grad = grad.contiguous()
     d_fl = torch.empty((b, h, w, c), dtype=f_left.dtype, device=f_left.device)
-    d_fr = torch.empty_like(d_fl)
+    return grad, tuple(grad.stride()[:3]), sbl, sbr, d_fl, torch.empty_like(d_fl)
+
+
+def launch_backward(
+    grad: torch.Tensor, f_left: torch.Tensor, f_right: torch.Tensor, max_disp: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(d_fl, d_fr) from the fp32 backward kernel on CUDA tensors
+    (:func:`backward_operands`); counts one ``correlation_bwd`` launch.
+    Raises for any dtype but float32."""
+    if f_left.dtype != torch.float32 or grad.dtype != torch.float32:
+        raise TypeError(
+            f"correlation's backward kernel takes float32, not {f_left.dtype} features and a "
+            f"{grad.dtype} gradient"
+        )
+    grad, (sgb, sgh, sgw), sbl, sbr, d_fl, d_fr = backward_operands(
+        grad, f_left, f_right, max_disp, "correlation_bwd")
     if d_fl.numel() == 0:
         return d_fl, d_fr
+    b, h, w, c = f_left.shape
     err = _build.lib().sde_correlation_bwd(
         grad.data_ptr(), sgb, sgh, sgw, f_left.data_ptr(), sbl, f_right.data_ptr(), sbr,
-        d_fl.data_ptr(), d_fr.data_ptr(), b, h, w, c, max_disp, _DTYPES[f_left.dtype],
+        d_fl.data_ptr(), d_fr.data_ptr(), b, h, w, c, max_disp,
         f_left.device.index, _build.stream_of(f_left),
     )
-    _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.check(err, "correlation_bwd")
+    _build.LAUNCHES["correlation_bwd"] += 1
     return d_fl, d_fr
 
 
@@ -270,12 +281,7 @@ def correlation_backward(
     the plain version on the CPU."""
     if f_left.device.type == "cpu":
         return correlation_backward_plain(grad, f_left, f_right, max_disp)
-    if f_left.dtype != torch.float32 or grad.dtype != torch.float32:
-        raise TypeError(
-            f"correlation's backward kernel takes float32, not {f_left.dtype} features and a "
-            f"{grad.dtype} gradient"
-        )
-    return launch_backward(grad, f_left, f_right, max_disp, "correlation_bwd")
+    return launch_backward(grad, f_left, f_right, max_disp)
 
 
 def _setup_context(ctx, inputs, output):

@@ -16,10 +16,12 @@ the stereo tower's interleaved (2B, H, W, C) output as they are: views
 with contiguous (W, C) rows and a batch stride of 2*H*W*C.
 
 The backward (:func:`correlation_gram_backward`, registered as the op's
-autograd formula) is ``csrc/correlation_bwd.cu`` in bf16, kernel 7b of the
+autograd formula) is ``csrc/correlation_gram_bwd.cu``, kernel 7b of the
 port: it replaces what XLA derives for ``_correlation_gram`` in the JAX
 train steps (the transposed banded ``dot_general``). Both outputs are
 ``1/C sum_d`` over bf16 products with fp32 sums, rounded to bf16 once;
+the kernel runs them as transposed banded Grams on the tensor cores
+(blocking: :func:`backward_plan`), and
 :func:`correlation_gram_backward_plain` computes the same in PyTorch.
 """
 
@@ -34,10 +36,10 @@ from scenedepthestimation_tpu_torch.ops.cuda import _build
 from scenedepthestimation_tpu_torch.ops.cuda.correlation import (
     MAX_D_TILE,
     _check,
+    backward_operands,
     batch_stride,
     correlation_backward_plain,
     d_cover,
-    launch_backward,
 )
 
 # W tile of the plain version's Gram, as the JAX package's _GRAM_T.
@@ -73,6 +75,67 @@ def tile_plan(w: int, c: int, d: int) -> dict:
         "k_chunk": K_CHUNK,
         "k_chunks": -(-c // K_CHUNK),
         "stages": STAGES,
+    }
+
+
+# The backward kernel's blocking (csrc/correlation_gram_bwd.cu): units of a
+# row's BWD_W_TILE-wide W tile with both outputs, walked by persistent
+# blocks of BWD_WARPS warps; warp i < BWD_WARPS / 2 runs d_fl's m16 row
+# tile i, the others d_fr's, over the k16 slices its band touches and the
+# 8 n8 tiles of a K_CHUNK-channel chunk; D in chunks of at most BWD_MAX_D,
+# each a multiple of 8; g's staged rows BWD_G_PITCH values wide (the
+# chunk's disparities at column 16, zeros around them, which the band
+# gathers read); a warp's output tile 16 rows of BWD_OUT_PITCH values;
+# BWD_STAGES ring stages. An SM's SMEM_PER_SM bytes hold as many blocks as
+# fit with SMEM_RESERVED bytes each beside their own (two at D <= 48).
+BWD_W_TILE = 64
+BWD_WARPS = 2 * BWD_W_TILE // 16
+BWD_MAX_D = 48
+BWD_G_PITCH = 88
+BWD_OUT_PITCH = 72
+BWD_STAGES = 2
+SMEM_PER_SM = 233472
+SMEM_RESERVED = 1024
+
+
+def backward_plan(w: int, c: int, d: int) -> dict:
+    """The backward kernel's blocking for a (W, C) row and D disparities:
+    the W tiles; the D chunk (the fewest chunks of at most BWD_MAX_D, each
+    ceil(d / chunks) rounded up to a multiple of 8: tile, tiles); the band's
+    width (min(D, D tile)) and the k16 slices a warp's row tile runs over
+    it, ``slices`` = ceil((15 + band) / 16) (a 16-row tile's band spans 16 +
+    band - 1 window columns); the window rows each view stages (``window``
+    = BWD_W_TILE + 16 (slices - 1)); whether d_fl has g rows of its own (D
+    chunks) and the g rows a step stages (the window's, plus BWD_W_TILE);
+    the channel chunks; the ring's stages, the shared memory a block takes,
+    in bytes (the stages and the warps' output tiles), and the blocks that
+    an SM's shared memory holds (registers allow two)."""
+    tiles = -(-d // BWD_MAX_D)
+    dt = -(-(-(-d // tiles)) // 8) * 8
+    nd = -(-d // dt)
+    band = min(dt, d)
+    slices = -(-(15 + band) // 16)
+    window = BWD_W_TILE + 16 * (slices - 1)
+    own_fl = nd > 1
+    g_rows = window + (BWD_W_TILE if own_fl else 0)
+    stage = 2 * window * K_CHUNK + g_rows * BWD_G_PITCH
+    shared = 2 * (BWD_STAGES * stage + BWD_WARPS * 16 * BWD_OUT_PITCH)
+    return {
+        "w_tile": BWD_W_TILE,
+        "w_tiles": -(-w // BWD_W_TILE),
+        "d_tile": dt,
+        "d_tiles": nd,
+        "band": band,
+        "slices": slices,
+        "window": window,
+        "own_fl_rows": own_fl,
+        "g_rows": g_rows,
+        "k_chunk": K_CHUNK,
+        "k_chunks": -(-c // K_CHUNK),
+        "warps": BWD_WARPS,
+        "stages": BWD_STAGES,
+        "shared_bytes": shared,
+        "smem_blocks_per_sm": SMEM_PER_SM // (shared + SMEM_RESERVED),
     }
 
 
@@ -169,7 +232,19 @@ def correlation_gram_backward(
             f"correlation_gram's backward kernel takes bfloat16, not {f_left.dtype} features "
             f"and a {grad.dtype} gradient"
         )
-    return launch_backward(grad, f_left, f_right, max_disp, "correlation_gram_bwd")
+    grad, (sgb, sgh, sgw), sbl, sbr, d_fl, d_fr = backward_operands(
+        grad, f_left, f_right, max_disp, "correlation_gram_bwd")
+    if d_fl.numel() == 0:
+        return d_fl, d_fr
+    b, h, w, c = f_left.shape
+    err = _build.lib().sde_correlation_gram_bwd(
+        grad.data_ptr(), sgb, sgh, sgw, f_left.data_ptr(), sbl, f_right.data_ptr(), sbr,
+        d_fl.data_ptr(), d_fr.data_ptr(), b, h, w, c, max_disp,
+        f_left.device.index, _build.stream_of(f_left),
+    )
+    _build.check(err, "correlation_gram_bwd")
+    _build.LAUNCHES["correlation_gram_bwd"] += 1
+    return d_fl, d_fr
 
 
 def _setup_context(ctx, inputs, output):

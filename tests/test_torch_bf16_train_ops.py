@@ -24,10 +24,8 @@ from flax import linen as nn
 from scenedepthestimation_tpu.models import stereo as jax_stereo
 from scenedepthestimation_tpu.ops.correlation import _correlation_gram
 from scenedepthestimation_tpu_torch.models import stereo as port_stereo
-from scenedepthestimation_tpu_torch.ops.cuda import correlation as corr_kernel
 from scenedepthestimation_tpu_torch.ops.cuda import correlation_gram as gram_kernel
 from scenedepthestimation_tpu_torch.ops.cuda import upsample_concat as upcat_kernel
-from test_torch_train_ops import _corr_bwd_emulation
 from torch_threads import two_threads  # noqa: F401 (autouse)
 
 jax_up = importlib.import_module("scenedepthestimation_tpu.ops.upsample")
@@ -117,6 +115,144 @@ def _jax_gram_vjp(shape):
     return tuple(np.asarray(v, np.float32) for v in out)
 
 
+def _window(view, cols, c0, kc):
+    """Rows ``cols`` of one (W, C) row's view, channels [c0, c0 + kc), zero
+    outside [0, W) and past C: a staged window."""
+    w, c = view.shape
+    out = np.zeros((len(cols), kc), np.float32)
+    ok = (cols >= 0) & (cols < w)
+    out[ok, : min(kc, c - c0)] = view[cols[ok], c0 : c0 + kc]
+    return out
+
+
+def _g_rows(grow, rows, d0, dt, d, pitch, col0):
+    """g's rows ``rows`` of one (W, D) row, disparities [d0, d0 + dt) at
+    columns [col0, col0 + dt) of ``pitch``-wide rows, zero elsewhere and at
+    or past W and D: the staged rows G."""
+    w = grow.shape[0]
+    out = np.zeros((len(rows), pitch), np.float32)
+    ks = d0 + np.arange(dt)
+    out[np.ix_(rows < w, col0 + np.arange(dt)[ks < d])] = grow[np.ix_(rows[rows < w], ks[ks < d])]
+    return out
+
+
+def _band_fragments(gs, right, aoff, ks, pitch):
+    """The A fragment of k16 slice ``ks`` as csrc/correlation_gram_bwd.cu's
+    lanes gather it from the staged rows G (``gs``, flat), as a 16 x 16
+    array: lane (g, q) holds a0 = A[g][2q, 2q + 1], a1 = A[g + 8][..], a2 =
+    A[g][2q + 8, ..], a3 = A[g + 8][2q + 8, ..]. ``aoff`` is the lane's
+    offset: d_fr's a0 pair is (gs[p], gs[p + pitch + 1]), a diagonal; d_fl's
+    the two values from the funnel shift of the 32-bit words at the even
+    offset ``aoff[0]`` and after, by ``aoff[1]`` halves."""
+    lane = np.arange(32)
+    g, q = lane >> 2, lane & 3
+    a = np.zeros((16, 16), np.float32)
+    # (register: row offset m, column offset k) within the tile
+    regs = ((0, 0), (8, 0), (0, 8), (8, 8))
+    for (dm, dk) in regs:
+        if right:
+            p = aoff[lane] + ks * (16 * pitch + 16) + dk * pitch + dm + dk
+            lo, hi = gs[p], gs[p + pitch + 1]
+        else:
+            base, sh = aoff[0][lane], aoff[1][lane]
+            e = base + 16 * ks + dm * pitch + dm + dk + sh  # the funnel's first half
+            lo, hi = gs[e], gs[e + 1]
+        a[g + dm, 2 * q + dk] = lo
+        a[g + dm, 2 * q + dk + 1] = hi
+    return a
+
+
+def _gram_bwd_emulation(g, fl, fr, d):
+    """csrc/correlation_gram_bwd.cu's schedule in numpy (backward_plan's
+    blocking): per (row, W tile w0, channel chunk c0, D chunk d0) the
+    reversed fr window WR[c] = fr[w0 - d0 + T-1 - c], fl's WL[r] = fl[w0 +
+    d0 + r] and g's rows G[r] = g[w0 + d0 + r] staged with zeros outside
+    the frame and past C and D, G's at column 16 of BWD_G_PITCH-wide rows of
+    zeros (and d_fl's own rows g[w0 + r] after them past D chunk 0). Each
+    warp's band fragments are gathered from G by the kernel's lane offsets
+    (_band_fragments) and checked equal, slice by slice, to the band from
+    the definition, M[x, y] = g[x, x - y] (0 <= x - y - d0 < DT, x - y < D,
+    x < W) at d_fl's A[m][k] = M[w0 + 16 i + m, w0 - d0 + T-1 - (kbase +
+    k)] and d_fr's A[m][k] = M[w0 + d0 + kbase + k, w0 + T-1 - 16 i - m]
+    (kbase = T - 16 - 16 i); and each warp's k16 slices are checked to cover
+    every nonzero of its tile's band. Then the products of each slice (A
+    against the window's rows kbase + 16 s ..) are summed in fp32 and added
+    to the fp32 sums slice by slice, D chunks in order. Returns (d_fl, d_fr)
+    as fp32 values times fp32 1/C, before the one rounding."""
+    b_, h_, w_, c_ = fl.shape
+    plan = gram_kernel.backward_plan(w_, c_, d)
+    t, dt, nd, s_, r_ = (plan[k] for k in ("w_tile", "d_tile", "d_tiles", "slices", "window"))
+    kc, own = plan["k_chunk"], plan["own_fl_rows"]
+    assert plan["g_rows"] == r_ + (t if own else 0) and plan["warps"] == 2 * (t // 16)
+    assert r_ == t + 16 * (s_ - 1) and 16 * s_ >= 15 + plan["band"]
+    pitch, col0 = gram_kernel.BWD_G_PITCH, 16
+    assert col0 + 16 * s_ + 2 <= pitch  # the gathers stay inside a row
+    inv_c = np.float32(1) / np.float32(c_)
+    d_fl = np.full(fl.shape, np.nan, np.float32)
+    d_fr = np.full(fr.shape, np.nan, np.float32)
+    lane = np.arange(32)
+    gl, ql = lane >> 2, lane & 3
+    ext = np.arange(-64, r_ + 64)  # window rows past the staged ones
+
+    def band(xs, ys, d0):
+        """M[x, y] from the definition at rows xs, columns ys: the D chunk's
+        disparities x - y in [d0, d0 + DT) only."""
+        x = xs[:, None]
+        k = x - ys[None, :]
+        ok = (k >= d0) & (k < min(d0 + dt, d)) & (x < w_) & (x >= 0)
+        return np.where(ok, grow[np.clip(x, 0, w_ - 1), np.clip(k, 0, d - 1)], 0.0)
+
+    for bi in range(b_):
+        for hi in range(h_):
+            grow = g[bi, hi]
+            for w0 in range(0, w_, t):
+                n = min(t, w_ - w0)
+                for c0 in range(0, c_, kc):
+                    acc = {False: np.zeros((t, kc), np.float32),
+                           True: np.zeros((t, kc), np.float32)}
+                    for d0 in range(0, nd * dt, dt):
+                        win = {False: _window(fr[bi, hi], w0 - d0 + t - 1 - np.arange(r_), c0, kc),
+                               True: _window(fl[bi, hi], w0 + d0 + np.arange(r_), c0, kc)}
+                        rows = [_g_rows(grow, w0 + d0 + np.arange(r_), d0, dt, d, pitch, col0)]
+                        if own:
+                            rows.append(_g_rows(grow, w0 + np.arange(t), d0, dt, d, pitch, col0))
+                        # slack past the last row: the gathers stay inside it
+                        gs = np.concatenate(rows + [np.zeros((1, pitch), np.float32)]).ravel()
+                        for i in range(t // 16):
+                            kbase = t - 16 - 16 * i
+                            tile = np.arange(16 * i, 16 * i + 16)
+                            col = col0 + gl + 2 * ql - 15
+                            offs = {
+                                True: (kbase + 2 * ql) * pitch + col,
+                                False: (((r_ if own else 0) + 16 * i + gl) * pitch + (col & ~1),
+                                        col & 1),
+                            }
+                            ks_rows = np.arange(kbase, kbase + 16 * s_)
+                            a_fl = band(w0 + tile, w0 - d0 + t - 1 - ext, d0)
+                            a_fr = band(w0 + d0 + ext, w0 + t - 1 - tile, d0)
+                            assert not a_fl[:, ~np.isin(ext, ks_rows)].any()
+                            assert not a_fr[~np.isin(ext, ks_rows), :].any()
+                            for right in (False, True):
+                                for sl in range(s_):
+                                    k = kbase + 16 * sl + np.arange(16)
+                                    a = _band_fragments(gs, right, offs[right], sl, pitch)
+                                    want = (band(w0 + d0 + k, w0 + t - 1 - tile, d0).T if right
+                                            else band(w0 + tile, w0 - d0 + t - 1 - k, d0))
+                                    np.testing.assert_array_equal(a, want)
+                                    acc[right][16 * i : 16 * i + 16] += a @ win[right][k]
+                    cw = min(kc, c_ - c0)
+                    d_fl[bi, hi, w0 : w0 + n, c0 : c0 + cw] = acc[False][:n, :cw] * inv_c
+                    # d_fr's tile row m is pixel T-1-m.
+                    d_fr[bi, hi, w0 : w0 + n, c0 : c0 + cw] = acc[True][::-1][:n, :cw] * inv_c
+    return d_fl, d_fr
+
+
+def _within_a_spacing(got, want) -> bool:
+    """Every element of got within one bf16 spacing of want's + 1e-6, the
+    card's allowance for the kernel against its plain version."""
+    return bool((np.abs(got - want) <= spacing(want) + 1e-6).all())
+
+
 GRAM_CS = (5, 64, 128)
 GRAM_DS = (1, 7, 24, 48, 100)
 # The JAX vjp against the port's plain backward, in bf16 spacings of each
@@ -131,13 +267,13 @@ JAX_GRAM_SPACINGS = 2.0
 @pytest.mark.parametrize("d", GRAM_DS)
 @pytest.mark.parametrize("c", GRAM_CS)
 def test_correlation_gram_backward_matches_oracle_and_jax(c, d):
-    """At W = 70 (off the 64-column segment; D = 100 > W), the port's
-    backward (the op's autograd, the plain version on the CPU) against a
-    float64 oracle within one bf16 spacing of each output's largest
-    magnitude, against jax.vjp of the JAX bf16 cost within
-    JAX_GRAM_SPACINGS of it, and the kernel's schedule emulated in numpy
-    (bf16 blocking: D chunks a multiple of 16) equal to it bit for bit once
-    rounded to bf16."""
+    """At W = 70 (off the 64-column tile; D = 100 > W), the port's backward
+    (the op's autograd, the plain version on the CPU) against a float64
+    oracle within one bf16 spacing of each output's largest magnitude,
+    against jax.vjp of the JAX bf16 cost within JAX_GRAM_SPACINGS of it,
+    and the kernel's schedule emulated in numpy (the sheared band on the
+    tensor cores' k16 slices, fp32 sums), rounded once to bf16, within one
+    spacing + 1e-6 of it element by element."""
     shape = (1, 2, 70, c, d)
     fl, fr, g = _gram_problem(shape)
     got = _port_grads(fl, fr, g)
@@ -145,37 +281,65 @@ def test_correlation_gram_backward_matches_oracle_and_jax(c, d):
         assert _spacings(p, o) <= 1.0
     for p, j in zip(got, _jax_gram_vjp(shape)):
         assert _spacings(p, j) <= JAX_GRAM_SPACINGS
-    for p, e in zip(got, _corr_bwd_emulation(g, fl, fr, d, BF16)):
-        np.testing.assert_array_equal(p, _bf16(e))
+    for p, e in zip(got, _gram_bwd_emulation(g, fl, fr, d)):
+        assert _within_a_spacing(_bf16(e), p)
 
 
-@pytest.mark.parametrize("w", (63, 64, 65, 130))
-@pytest.mark.parametrize("c,d", [(5, 100), (128, 24)], ids=["c5-d100", "c128-d24"])
-def test_correlation_gram_backward_schedule_at_segment_edges(w, c, d):
-    """W at the kernel's segment edges and past two segments; C = 5 (the
-    scalar staging) with three D chunks of 48, C = 128 (two channel chunks)
-    with one D chunk of 32: the emulated schedule equals the plain backward
-    bit for bit in bf16, and the plain backward is within one spacing of the
-    float64 oracle."""
-    fl, fr, g = _gram_problem((2, 1, w, c, d))
+@pytest.mark.parametrize("d", GRAM_DS)
+@pytest.mark.parametrize("c", GRAM_CS)
+@pytest.mark.parametrize("w", (63, 64, 65, 96, 97, 130, 288))
+def test_correlation_gram_backward_schedule(w, c, d):
+    """The tensor-core kernel's schedule at W on and off its 64-column tile
+    (one to five tiles), C = 5 (one part-filled channel chunk), 64
+    and 128 (two chunks), D = 1 and 7 (one or two k16 slices), 24, 48 and
+    100 (three D chunks of 40, d_fl with rows of its own): the band's
+    fragments gathered as the kernel's lanes gather them equal the band from
+    the definition, each warp's k16 slices cover its band, and the
+    slice-by-slice fp32 sums,
+    rounded once to bf16, lie within one spacing + 1e-6 of the float64
+    oracle and of correlation_gram_backward_plain, element by element."""
+    fl, fr, g = _gram_problem((1, 1, w, c, d))
+    emu = _gram_bwd_emulation(g, fl, fr, d)
     plain = gram_kernel.correlation_gram_backward_plain(_t(g), _t(fl), _t(fr), d)
-    for p, e, o in zip(plain, _corr_bwd_emulation(g, fl, fr, d, BF16), _oracle(fl, fr, g)):
+    for e, p, o in zip(emu, plain, _oracle(fl, fr, g)):
         assert p.dtype == BF16
-        np.testing.assert_array_equal(_np(p), _bf16(e))
-        assert _spacings(_np(p), o) <= 1.0
+        assert _within_a_spacing(_bf16(e), _np(p))
+        assert _within_a_spacing(_bf16(e), o)
 
 
-@pytest.mark.parametrize("d,want", [(1, (16, 1)), (7, (16, 1)), (24, (32, 1)), (48, (48, 1)),
-                                    (100, (48, 3))])
-def test_bf16_backward_plan_pairs_the_slots_of_g(d, want):
-    """The bf16 kernel's D chunk is a multiple of 16 (two 16-byte slots of
-    g's row, which its XOR pairs), at most 48 where D allows; shared memory
-    is half the fp32 kernel's for the same chunk."""
-    plan = corr_kernel.backward_plan(288, 64, d, BF16)
-    assert (plan["d_tile"], plan["d_tiles"]) == want
-    f32 = corr_kernel.backward_plan(288, 64, d)
-    if f32["d_tile"] == plan["d_tile"]:
-        assert plan["shared_bytes"] * 2 == f32["shared_bytes"]
+@pytest.mark.parametrize("d,want", [
+    (1, (8, 1, 1, 64)), (7, (8, 1, 2, 80)), (12, (16, 1, 2, 80)), (24, (24, 1, 3, 96)),
+    (48, (48, 1, 4, 112)), (100, (40, 3, 4, 112)),
+], ids=lambda v: str(v))
+def test_gram_backward_plan(d, want):
+    """(D chunk, D chunks, k16 slices, window rows) at W = 288 (five
+    64-wide tiles): D = 48, config 5's, is one chunk whose 16-row tiles read
+    63 window columns in four slices, a block in 115,200 bytes, two to an
+    SM; D = 100 takes three chunks of 40 with d_fl's g rows apart."""
+    plan = gram_kernel.backward_plan(288, 64, d)
+    got = tuple(plan[k] for k in ("d_tile", "d_tiles", "slices", "window"))
+    assert got == want
+    assert plan["w_tiles"] == 5 and plan["k_chunks"] == 1 and plan["stages"] == 2
+    assert plan["own_fl_rows"] == (plan["d_tiles"] > 1)
+    if d == 48:
+        assert plan["shared_bytes"] == 115200 and plan["smem_blocks_per_sm"] == 2
+
+
+def test_gram_backward_plan_fits_every_d():
+    """For every D up to 400 and C in (5, 64, 128, 200): the D chunks cover
+    D with a chunk a multiple of 8 and at most BWD_MAX_D, the slices cover
+    a 16-row tile's band (16 S >= 15 + band), the gathers stay inside a
+    staged row of g (16 + 16 S + 2 <= BWD_G_PITCH), and an SM's shared
+    memory holds a block (two wherever D fits one chunk)."""
+    for c in (5, 64, 128, 200):
+        for d in range(1, 401):
+            plan = gram_kernel.backward_plan(130, c, d)
+            dt, nd = plan["d_tile"], plan["d_tiles"]
+            assert dt % 8 == 0 and dt <= gram_kernel.BWD_MAX_D and (nd - 1) * dt < d <= nd * dt
+            assert 16 * plan["slices"] >= 15 + plan["band"] and plan["band"] == min(d, dt)
+            assert 16 + 16 * plan["slices"] + 2 <= gram_kernel.BWD_G_PITCH
+            assert plan["smem_blocks_per_sm"] >= (2 if nd == 1 else 1)
+            assert plan["k_chunks"] == -(-c // 64)
 
 
 # ---------------------------------------------------------------------------

@@ -132,18 +132,18 @@ def test_soft_argmin_backward_plain_is_autograd_of_the_plain_forward():
 # ---------------------------------------------------------------------------
 
 
-def _corr_bwd_emulation(g, fl, fr, d, dtype=torch.float32):
+def _corr_bwd_emulation(g, fl, fr, d):
     """csrc/correlation_bwd.cu's schedule in numpy, fp32: a unit a row's W
-    segment, per 64-channel chunk and D chunk (backward_plan of ``dtype``,
-    the kernel's instantiation) the views' zero-filled windows and g's rows
-    staged (d_fl's rows of g are the first 64 in D chunk 0), each thread's
+    segment, per 64-channel chunk and D chunk (backward_plan) the views'
+    zero-filled windows and g's rows staged (d_fl's rows of g are the first
+    64 in D chunk 0), each thread's
     ring of 8 columns taking the one that enters at every step, g read as
     4-step vectors (a row a pixel for d_fl, the 11 rows the diagonals cross
     for d_fr), all of a unit's threads at once, d ascending across chunks,
-    the 1/C last; fp32 sums, before any rounding to ``dtype``. The kernel's
-    FMAs round once where this rounds twice."""
+    the 1/C last; fp32 sums. The kernel's FMAs round once where this rounds
+    twice."""
     b_, h_, w_, c_ = fl.shape
-    plan = corr_kernel.backward_plan(w_, c_, d, dtype)
+    plan = corr_kernel.backward_plan(w_, c_, d)
     seg, px, dt, nd, kc = (plan["w_segment"], plan["register_tile"][0], plan["d_tile"],
                            plan["d_tiles"], plan["chunk"])
     ncols = plan["window"]
