@@ -240,13 +240,16 @@ Phases, one line each (more for the per-shape kernel checks):
      profile of each step.
  23. bf16 mono training (the bench preset, mono_kitti_384x1152_bench, at
      384x1152; run after 22 and before 19): conv3x3's bf16 backward
-     (kernel 1e, dx: dpre rounded to bf16 once, the slabs of the flipped
-     weight, the interior on the wgmma forward, the fold; kernel 1f, dW and
-     db on mma.sync tensor cores) at the 14 decoder shapes at b128 and off
-     them against their plain version (one bf16 spacing of each output's
-     largest magnitude + 1e-6, two on dx's fold lines), bit-stable, their
-     ptxas lines (0 bytes of spill stores), times by call and device,
-     bounds, plain and cuDNN times; upsample_concat's bf16 backward at the
+     (kernel 1e, dx: dpre rounded to bf16 once, the slab of the flipped
+     weight, the interior on conv3x3_dx_wgmma_kernel, the fold on mma.sync;
+     kernel 1f, dW and db on conv3x3_dw_wgmma_kernel, or the mma.sync
+     kernel at 16 output channels and below) at the 14 decoder shapes at
+     b128 and off them against their plain version (one bf16 spacing of
+     each output's largest magnitude + 1e-6, two on dx's fold lines),
+     bit-stable, the kernels' plans (the dx plan of the C side equal to
+     conv_block.dx_plan, the dW route to dw_route), their ptxas lines (0
+     bytes of spill stores), times by call and device, bounds, plain and
+     cuDNN times; upsample_concat's bf16 backward at the
      4 joins at b128 (exact); BatchNorm's eval mode on bf16 activations with
      fp32 statistics, card against CPU; the supervised and self-supervised
      steps against the card's plain path and fp32 step at b8 and the CPU's
@@ -256,7 +259,8 @@ Phases, one line each (more for the per-shape kernel checks):
      artifact in the bf16 Predictor; run_train_bench in both modes in a
      fresh process at the micro-batches that make up b128 (frames/s, peak
      memory, busy share, kernel time by class) and 1e's and 1f's kernel
-     times there.
+     times there, each shape's split by kernel ("[23 conv3x3 bf16 backward
+     split]": dx's dpre, slab, interior and fold, dW's kernel and reduce).
 Then one JSON line of per-kernel results (with each kernel's bound on
 this card and, where one PyTorch call computes the same function, that
 call's time) and, last, the ok line.
@@ -310,10 +314,23 @@ in every process) that together exceed twice the L2: its error against its
 plain version in bf16 spacings, and its time by call, device and kernel
 (RUNS calls each, default 30), beside the card's name and power limit; one
 JSON line. Run a change and its parent in turns on one card.
+
+    python3 chip_smoke.py --measure-conv-bwd [ROOT] [RUNS]
+
+times kernels 1e and 1f of the package under ROOT at the bench preset's 14
+decoder shapes at b128 (BF16_MONO_BWD_SHAPES, reflect), through the public
+conv_block.conv3x3_dx and conv3x3_dw on a bf16 dpre, on argument sets made
+from one seed (the same in every process) that together exceed twice the
+L2: each call's error against its plain version in bf16 spacings of the
+largest magnitude, its device time (events queued behind a spin kernel)
+and kernel time by kernel (torch.profiler), RUNS calls each (default 10),
+and the sums over the 14, beside the card's name and power limit; one JSON
+line. Run a change and its parent in turns on one card.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -4964,14 +4981,19 @@ BF16_MONO_BWD_SHAPES = [
 # (B, H, W, Cin, Cout, activation, border) off the path: the edge and zero
 # borders, H = 1, B = 1, 1- and 2-pixel axes, Cin and Cout off 8 and 16 (the
 # scalar stagings), W off 16 (ragged strips), Cin = 1 (the interior on the
-# forward's head kernel), Cout = 1.
+# forward's head kernel), Cout = 1; and the dx interior's streamed plans
+# (N tiles of 128 and 64: Cin 136 and Cout 300 at Cin 64), a resident w' at
+# a halved N tile (Cin 24, Cout 300), dW's Cout above one m64 tile and a
+# ragged Cin tile, and the widest level at b2.
 BF16_MONO_BWD_EXTRA = [(1, 1, 7, 5, 3, "elu", "reflect"), (1, 2, 9, 12, 7, "elu", "reflect"),
                        (3, 5, 1, 4, 9, "elu", "edge"), (2, 6, 2, 20, 1, "sigmoid", "zero"),
                        (1, 1, 1, 3, 3, "elu", "reflect"), (2, 9, 33, 40, 24, "elu", "zero"),
                        (2, 17, 19, 96, 1, "sigmoid", "edge"), (1, 13, 70, 70, 36, "none", "reflect"),
                        (4, 24, 80, 128, 64, "elu", "edge"), (2, 48, 150, 96, 32, "elu", "reflect"),
                        (2, 5, 6, 1, 4, "elu", "reflect"), (1, 3, 4, 1, 1, "sigmoid", "edge"),
-                       (1, 40, 37, 16, 16, "elu", "reflect"), (2, 31, 45, 33, 17, "elu", "zero")]
+                       (1, 40, 37, 16, 16, "elu", "reflect"), (2, 31, 45, 33, 17, "elu", "zero"),
+                       (2, 20, 40, 136, 128, "elu", "reflect"), (1, 7, 9, 64, 300, "elu", "edge"),
+                       (2, 33, 35, 24, 300, "elu", "zero"), (2, 12, 36, 512, 256, "elu", "reflect")]
 # The bench preset's four joins at b128: (name, h, w, c1, c2) of x (h, w, c1)
 # and the skip (2h, 2w, c2).
 BENCH_UPCAT_SHAPES = [("level_4", 12, 36, 256, 256), ("level_3", 24, 72, 128, 128),
@@ -4980,10 +5002,15 @@ BENCH_UPCAT_SHAPES = [("level_4", 12, 36, 256, 256), ("level_3", 24, 72, 128, 12
 BF16_MONO_RUNS = 10
 # One bench-preset step's launches: the 10 weight slabs (the forward casts
 # each fp32 weight to bf16 and arranges it), and for each of the 14 convs
-# dpre, the slabs of w' (one launch), dx's interior and fold, and dW.
+# dpre, the slabs of w' (one launch), dx's interior (the 10 ELU convs on the
+# wgmma interior kernel, the 4 heads on theirs) and fold, and dW (the 8
+# convs of more than 16 output channels on the wgmma kernel, upconv_0_x on
+# the mma.sync one, the 4 heads on theirs).
 BF16_MONO_LAUNCHES = {"conv3x3": 14, "conv3x3_slab": 10, "conv3x3_dpre": 14,
-                      "conv3x3_dx_slab": 14, "conv3x3_dx_bf16": 14, "conv3x3_dx_fold": 14,
-                      "conv3x3_dw_bf16": 14, "upsample_concat": 4, "upsample_concat_bwd_bf16": 4}
+                      "conv3x3_dx_slab": 14, "conv3x3_dx_bf16": 10, "conv3x3_dx_bf16_head": 4,
+                      "conv3x3_dx_fold_bf16": 14, "conv3x3_dw_bf16": 8, "conv3x3_dw_bf16_mma": 2,
+                      "conv3x3_dw_bf16_head": 4,
+                      "upsample_concat": 4, "upsample_concat_bwd_bf16": 4}
 # The steps against the card's plain path and fp32 step at 384x1152 (b8:
 # the plain path's fp32 convolutions at b128 would not fit beside the
 # kernel path's), and against the CPU's bf16 step at 64x128 b2 (the rig's
@@ -5138,23 +5165,61 @@ def _bf16_bwd_parts(conv_block, args):
             2.0 * b * h * w * cin * cout * 9)
 
 
+# The kernels of one dx call of phase 23 (conv3x3_dpre, then conv3x3_dx)
+# and of one conv3x3_dw call in bf16, by the part of the split that phase 23
+# prints: (name fragment, part).
+BF16_DX_PARTS = (("conv3x3_dpre_kernel", "dpre"), ("conv3x3_dx_slab_bf16_kernel", "slabs"),
+                 ("conv3x3_dx_wgmma_kernel", "interior"), ("conv3x3_dx_head_kernel", "interior"),
+                 ("conv3x3_dx_fold_tc_kernel", "fold"))
+BF16_DW_PARTS = (("conv3x3_dw_wgmma_kernel", "kernel"), ("conv3x3_dw_tc_kernel", "kernel"),
+                 ("conv3x3_dw_head_kernel", "kernel"),
+                 ("conv3x3_dw_reduce_kernel", "reduce"))
+
+
+def _split_kernel_time(fn, want: int, parts, tag: str, n: int = RUNS):
+    """(kernel ms or None, {part: ms}, {kernel: ms}) of one call of fn: one
+    torch.profiler window, each kernel's mean launch, summed by the part its
+    name falls in (``parts``, :data:`BF16_DX_PARTS`); fails unless the call
+    launches ``want`` kernels, each of a known part. A window that stays
+    without device events falls back to :func:`_checked_kernel_time` (the
+    kernel time unmeasured)."""
+    st = _profile_stats(fn, n)
+    if not st["by_name"]:
+        return _checked_kernel_time(fn, want, tag, n)[0], {}, {}
+    launches = round(st["launches"] / n)
+    check(launches == want, f"{tag}: {launches} kernel launches a call (want {want})")
+    split, kernels = {}, {}
+    for name, (us, k) in st["by_name"].items():
+        part = next((p for frag, p in parts if frag in name), None)
+        check(part is not None, f"{tag}: kernel {name} belongs to no part of the split")
+        kernels[name] = us / k / 1e3
+        split[part] = split.get(part, 0.0) + us / k / 1e3
+    return sum(split.values()), split, kernels
+
+
 def _bf16_mono_kernel_ms() -> dict:
-    """Kernels 1e's and 1f's kernel time summed over the bench preset's 14
-    convs at b128, by torch.profiler (each call's kernels: dx 4 launches,
-    dW 2; None where a window had no device events)."""
+    """Kernels 1e's and 1f's kernel time at the bench preset's 14 convs at
+    b128, by torch.profiler: {"kernel_ms": each kernel's sum over the 14
+    (None where a window had no device events), "split": {conv: {"dx":
+    {part: ms}, "dw": {part: ms}}}} (dx: dpre, the slabs, the interior, the
+    fold, 4 launches; dW: the kernel and its reduce, 2)."""
     from scenedepthestimation_tpu_torch.ops.cuda import conv_block
 
     gen = torch.Generator(device="cuda").manual_seed(23)
     out = {"conv3x3_dx_bf16": 0.0, "conv3x3_dw_bf16": 0.0}
+    split = {}
     for name, h, w, cin, cout, act in BF16_MONO_BWD_SHAPES:
         args = _bf16_bwd_args(gen, BENCH_TRAIN_B, h, w, cin, cout, act, "reflect")
         dx, dw = _bf16_bwd_parts(conv_block, args)[:2]
-        for key, fn, want in (("conv3x3_dx_bf16", dx, 4), ("conv3x3_dw_bf16", dw, 2)):
-            ms = _checked_kernel_time(fn, want, f"23 {key} {name}", n=BF16_MONO_RUNS)[0]
+        for key, fn, want, parts in (("conv3x3_dx_bf16", dx, 4, BF16_DX_PARTS),
+                                     ("conv3x3_dw_bf16", dw, 2, BF16_DW_PARTS)):
+            ms, by_part, _ = _split_kernel_time(fn, want, parts, f"23 {key} {name}",
+                                                n=BF16_MONO_RUNS)
             out[key] = None if ms is None or out[key] is None else out[key] + ms
+            split.setdefault(name, {})[key[8:10]] = by_part
         del args, dx, dw
         torch.cuda.empty_cache()
-    return out
+    return {"kernel_ms": out, "split": split}
 
 
 def _bf16_mono_kernels(conv_block, upcat) -> dict:
@@ -5163,13 +5228,13 @@ def _bf16_mono_kernels(conv_block, upcat) -> dict:
     2c at the preset's four joins at b128 (exact); BatchNorm's eval mode on
     a bf16 input with fp32 statistics on the card against the CPU."""
     log = _nvcc_log(conv_block._build)
-    for k in ("conv3x3_dw_tc_kernel", "conv3x3_dx_slab_bf16_kernel"):
+    for k in ("conv3x3_dx_wgmma_kernel", "conv3x3_dw_wgmma_kernel", "conv3x3_dx_fold_tc_kernel",
+              "conv3x3_dw_head_kernel", "conv3x3_dw_tc_kernel", "conv3x3_dx_slab_bf16_kernel"):
         lines = ptxas_lines(log, k)
         print(f"[23 {k} ptxas] " + "; ".join(
             f"{a} {r_} registers, {sp} bytes of spill stores" for a, r_, sp in lines))
         check(lines and all(sp == 0 for _, _, sp in lines), f"{k} spills registers")
-    for k in ("conv3x3_dpre_kernel", "conv3x3_dx_head_kernel", "conv3x3_dx_fold_kernel",
-              "conv3x3_dw_reduce_kernel"):
+    for k in ("conv3x3_dpre_kernel", "conv3x3_dx_head_kernel", "conv3x3_dw_reduce_kernel"):
         lines = [x for x in ptxas_lines(log, k) if "bfloat16" in x[0]]
         print(f"[23 {k} bf16 ptxas] " + "; ".join(
             f"{a} {r_} registers, {sp} bytes of spill stores" for a, r_, sp in lines))
@@ -5178,18 +5243,32 @@ def _bf16_mono_kernels(conv_block, upcat) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(23)
     for cin, cout in ((512, 256), (96, 32), (16, 1), (5, 3)):
         wt = torch.randn((cout, cin, 3, 3), device="cuda", generator=gen).bfloat16()
-        got = conv_block.arrange_dx_slab_bf16(wt, tc=cout > 1)
-        want = conv_block.arrange_dx_slab_bf16_plain(wt, tc=cout > 1)
-        check(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, want)),
-              f"the bf16 slabs of w' ({cout}, {cin}) differ from their plain versions")
+        check(torch.equal(conv_block.arrange_dx_slab_bf16(wt),
+                          conv_block.arrange_dx_slab_bf16_plain(wt)),
+              f"the bf16 slab of w' ({cout}, {cin}) differs from its plain version")
     for act, gdt in (("elu", torch.bfloat16), ("sigmoid", torch.float32), ("none", torch.bfloat16)):
         g = torch.randn((3, 7, 5, 6), device="cuda", generator=gen).to(gdt)
         out = (torch.rand((3, 7, 5, 6), device="cuda", generator=gen) - 0.5).to(gdt)
         check(torch.equal(conv_block.conv3x3_dpre(g, out, act, dtype=torch.bfloat16),
                           conv_block.conv3x3_dpre_plain(g, out, act).bfloat16()),
               f"conv3x3_dpre {act} {gdt} -> bf16 differs from its plain version")
-    print("[23 conv3x3 bf16 backward] the bf16 slabs of w' and dpre (bf16 and fp32 in, bf16 "
+    print("[23 conv3x3 bf16 backward] the bf16 slab of w' and dpre (bf16 and fp32 in, bf16 "
           "out) equal their plain versions bit for bit")
+    plans = []
+    for name, h, w, cin, cout, _ in BF16_MONO_BWD_SHAPES:
+        plan = (ctypes.c_int * 3)()
+        conv_block._build.check(conv_block._build.lib().sde_conv3x3_bwd_dx_plan(cin, cout, plan),
+                                "conv3x3 dx plan")
+        want = conv_block.dx_plan(cin, cout)
+        check((plan[0], bool(plan[1]), plan[2]) == want,
+              f"{name}: the dx kernel's plan {tuple(plan)} is not dx_plan's {want}")
+        dw = conv_block.bwd_plan(BENCH_TRAIN_B, h, w, cin, cout, torch.bfloat16, 0)
+        check(dw[3] == conv_block.dw_route(cin, cout, torch.bfloat16),
+              f"{name}: the dW kernel's route {dw[3]} is not dw_route's")
+        if cout > 1:
+            plans.append(f"{name} dx N tile {want[0]} {'resident' if want[1] else 'streamed'} "
+                         f"{want[2]} B, dW {conv_block.DW_KERNELS[dw[3]]} {dw[0]} slices")
+    print("[23 conv3x3 bf16 backward plans] " + "; ".join(plans))
 
     res = {}
     for name, h, w, cin, cout, act in BF16_MONO_BWD_SHAPES:
@@ -5454,7 +5533,12 @@ def phase_bf16_mono_training(sdt, _build, conv_block, upcat) -> dict:
                                       echo=True)
     for row in bench["rows"]:
         print(f"[23 run_train_bench] {json.dumps(row)}")
-    for name, kernel_ms in bench["kernel_ms"].items():
+    for conv, parts in bench["kernel_ms"]["split"].items():
+        print(f"[23 conv3x3 bf16 backward split] {conv} b{BENCH_TRAIN_B}, kernel ms by part "
+              "(torch.profiler, in the bench process): " + "; ".join(
+                  f"{key} " + (", ".join(f"{p} {ms:.4f}" for p, ms in by_part.items())
+                               or "not measured") for key, by_part in parts.items()))
+    for name, kernel_ms in bench["kernel_ms"]["kernel_ms"].items():
         r = res["dx" if "dx" in name else "dw"]
         print(f"[23 {name} kernel time] in the bench process, the 14 shapes at b{BENCH_TRAIN_B}: "
               + ("not measured (a profiler window had no device events)" if kernel_ms is None
@@ -5643,11 +5727,63 @@ def measure_gram_bwd(root: str, runs: int) -> int:
     return 0
 
 
+def measure_conv_bwd(root: str, runs: int) -> int:
+    """The --measure-conv-bwd mode: kernels 1e and 1f of the package under
+    root at the bench preset's 14 decoder shapes at b128, as the module
+    docstring says."""
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    sys.path.insert(0, os.path.abspath(root))
+    import scenedepthestimation_tpu_torch as sdt
+    from scenedepthestimation_tpu_torch.ops.cuda import conv_block
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows, total = [], {"dx": {"device_ms": 0.0, "kernel_ms": 0.0},
+                       "dw": {"device_ms": 0.0, "kernel_ms": 0.0}}
+    for name, h, w, cin, cout, act in BF16_MONO_BWD_SHAPES:
+        def make():
+            g, out, x, wt = _bf16_bwd_args(gen, BENCH_TRAIN_B, h, w, cin, cout, act,
+                                           "reflect")[:4]
+            return conv_block.conv3x3_dpre_plain(g, out, act).bfloat16(), x, wt
+
+        first = make()
+        sets = _cold_sets(first, make, nbytes(*first))
+        calls = {"dx": (lambda d, x, wt: conv_block.conv3x3_dx(d, wt, "reflect"),
+                        lambda d, x, wt: (conv_block.conv3x3_dx_plain(d, wt, "reflect"),)),
+                 "dw": (lambda d, x, wt: conv_block.conv3x3_dw(d, x, "reflect"),
+                        lambda d, x, wt: conv_block.conv3x3_dw_plain(d, x, "reflect"))}
+        row = {"name": name}
+        for key, (fn, plain) in calls.items():
+            got, ref = fn(*first), plain(*first)
+            got = got if isinstance(got, tuple) else (got,)
+            sp = max(((a.float() - r_.float()).abs().max()
+                      / _bf16_spacing(r_.float().abs().max())).item() for a, r_ in zip(got, ref))
+            del got, ref
+            call = _cycling(fn, sets)
+            device_ms = _queued_ms(call, runs)
+            kernels = {n: us / k / 1e3 for n, (us, k) in _profile_stats(call, runs)["by_name"].items()}
+            r = {"device_ms": device_ms, "spacings": sp,
+                 "kernel_ms": sum(kernels.values()) if kernels else None, "kernels": kernels}
+            row[key] = r
+            for k in ("device_ms", "kernel_ms"):
+                total[key][k] = (None if r[k] is None or total[key][k] is None
+                                 else total[key][k] + r[k])
+        rows.append(row)
+        del first, sets
+        torch.cuda.empty_cache()
+    print(json.dumps({"package": os.path.dirname(sdt.__file__), "nvidia_smi": smi,
+                      "batch": BENCH_TRAIN_B, "runs": runs, "total": total, "shapes": rows}))
+    return 0
+
+
 def main() -> int:
     modes = {"--measure": (measure, 200), "--measure-b1": (measure_b1, 200),
              "--measure-train": (measure_train, 10),
              "--measure-stereo-train": (measure_stereo_train, 20),
-             "--measure-gram-bwd": (measure_gram_bwd, RUNS)}
+             "--measure-gram-bwd": (measure_gram_bwd, RUNS),
+             "--measure-conv-bwd": (measure_conv_bwd, BF16_MONO_RUNS)}
     if sys.argv[1:2] and sys.argv[1] in modes:
         fn, default = modes[sys.argv[1]]
         rest = sys.argv[2:]
@@ -5754,8 +5890,11 @@ def main() -> int:
         "conv3x3_dw": mono_train_res["launches"]["conv3x3_dw"],
         "correlation_gram_bwd": bf16_train_res["launches"]["correlation_gram_bwd"],
         "upsample_concat_bwd_bf16": bf16_train_res["launches"]["upsample_concat_bwd_bf16"],
-        "conv3x3_dx_bf16": bf16_mono_res["launches"]["conv3x3_dx_bf16"],
-        "conv3x3_dw_bf16": bf16_mono_res["launches"]["conv3x3_dw_bf16"],
+        "conv3x3_dx_bf16": bf16_mono_res["launches"]["conv3x3_dx_bf16"]
+        + bf16_mono_res["launches"]["conv3x3_dx_bf16_head"],
+        "conv3x3_dw_bf16": bf16_mono_res["launches"]["conv3x3_dw_bf16"]
+        + bf16_mono_res["launches"]["conv3x3_dw_bf16_mma"]
+        + bf16_mono_res["launches"]["conv3x3_dw_bf16_head"],
     }
     for name in ("correlation_bwd", "soft_argmin_bwd"):
         res[name] = train_res[name]
@@ -5872,31 +6011,38 @@ def main() -> int:
                                      "bf16 (upsample_concat_bwd_kernel<bf16, 8>: 16-byte vectors, "
                                      "the 2x2 block summed in fp32, one rounding); plain_ms is the "
                                      "explicit plain backward; no PyTorch call computes it"),
-        "conv3x3_dx_bf16": ("scenedepthestimation_tpu_torch/csrc/conv3x3_bwd.cu",
+        "conv3x3_dx_bf16": ("scenedepthestimation_tpu_torch/csrc/conv3x3_dx_wgmma.cu + "
+                            "scenedepthestimation_tpu_torch/csrc/conv3x3_bwd.cu",
                             "scenedepthestimation_tpu/ops/pallas/conv_block.py:155 (_fused_bwd, "
                             "jax.vjp of conv3x3_xla in bf16: the custom VJP of the kernel at :167; "
                             "and the bf16 DispHead's conv VJP)",
                             f"{BENCH_CONFIG} b{BENCH_TRAIN_B} train step, the 14 decoder convs' "
                             "input gradient (10 ELU ConvBlocks, 4 sigmoid heads), reflect, bf16: "
                             "dpre rounded to bf16 once (conv3x3_dpre_kernel<bf16, bf16> and "
-                            "<float, bf16>), the slabs of the flipped weight "
-                            "(conv3x3_dx_slab_bf16_kernel), the interior on conv_block.cu's "
-                            "conv3x3_tc_kernel (wgmma; the heads on conv3x3_dx_head_kernel<bf16>), "
-                            "the fold (conv3x3_dx_fold_kernel<bf16>: fp32 sum, second rounding); "
-                            "launches counts the interiors; plain_ms is conv3x3_dx_plain; "
-                            "library_ms is cuDNN's bf16 convolution_backward for the input alone"),
+                            "<float, bf16>), the slab of the flipped weight "
+                            "(conv3x3_dx_slab_bf16_kernel), the interior on "
+                            "conv3x3_dx_wgmma_kernel (persistent blocks, wgmma with both operands "
+                            "from shared memory, w' resident where it fits; the heads on "
+                            "conv3x3_dx_head_kernel<bf16>), the fold on mma.sync "
+                            "(conv3x3_dx_fold_tc_kernel: fp32 sum, second rounding); launches "
+                            "counts the interiors; plain_ms is conv3x3_dx_plain; library_ms is "
+                            "cuDNN's bf16 convolution_backward for the input alone"),
         "conv3x3_dw_bf16": ("scenedepthestimation_tpu_torch/csrc/conv3x3_bwd.cu",
                             "scenedepthestimation_tpu/ops/pallas/conv_block.py:155 (_fused_bwd, "
                             "jax.vjp of conv3x3_xla in bf16: the custom VJP of the kernel at :167; "
                             "and the bf16 DispHead's conv VJP)",
                             f"{BENCH_CONFIG} b{BENCH_TRAIN_B} train step, the 14 decoder convs' "
-                            "weight and bias gradients from the bf16 dpre (conv3x3_dw_tc_kernel: "
-                            "mma.sync m16n8k16 over 8 x 16 pixel strips, the dpre tile and the "
-                            "input's halo staged once for the 9 taps, fragments by "
-                            "ldmatrix.trans, db against ones; split over the pixels, summed in "
-                            "order and rounded once by conv3x3_dw_reduce_kernel<., bf16>); "
-                            "plain_ms is conv3x3_dw_plain; library_ms is cuDNN's bf16 "
-                            "convolution_backward for weight and bias"),
+                            "weight and bias gradients from the bf16 dpre (Cout > 16: "
+                            "conv3x3_dw_wgmma_kernel, 64 output channels by 16-64 input channels "
+                            "by 9 taps a block, three warpgroups of three taps, wgmma with dpre "
+                            "and the input's halo MN-major from shared memory, a 5-stage cp.async "
+                            "ring of 8 x 16 pixel strips; the heads: conv3x3_dw_head_kernel on the "
+                            "CUDA cores, a channel pair a thread sliding its 3 x 3 window along a "
+                            "strip row; Cout 2-16: conv3x3_dw_tc_kernel on mma.sync; db against "
+                            "ones; split over the pixels, summed in order "
+                            "and rounded once by conv3x3_dw_reduce_kernel<., bf16>); launches "
+                            "counts both kernels; plain_ms is conv3x3_dw_plain; library_ms is "
+                            "cuDNN's bf16 convolution_backward for weight and bias"),
     }
     kernels = []
     for name, (src, rep, shapes) in meta.items():

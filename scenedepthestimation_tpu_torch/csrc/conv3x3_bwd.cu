@@ -69,28 +69,52 @@
 // which the CUDA cores' 67 TFLOP/s of fp32 FMAs would take 49 ms for.
 // - dpre: conv3x3_dpre_kernel<bf16, bf16> (the ELU layers) and <float,
 //   bf16> (the heads, whose g and sigmoid output are fp32).
-// - dx: the interior on conv_block.cu's conv3x3_tc_kernel (wgmma m64nNk16,
-//   the halo staged once for the 9 taps) with activation none, a zero bias,
-//   the zero border and the slab of w' in wgmma's core-matrix order, which
-//   conv3x3_dx_slab_bf16_kernel arranges each call together with the fold's
-//   fp32 K-major slab of w'; the heads on conv3x3_dx_head_kernel<bf16>;
-//   then conv3x3_dx_fold_kernel<bf16>, which touches the fold lines alone.
-// - dW and db (conv3x3_dw_tc_kernel + conv3x3_dw_reduce_kernel<., bf16>):
-//   dW[co, (tap, ci)] = sum over pixels p of dpre[p, co] xp[p + tap, ci] is
-//   a GEMM with M = Cout, N = 9 Cin and K = the pixels, on mma.sync
-//   m16n8k16 (bf16 in, fp32 sums). A block owns BM output by BN input
-//   channels for the 9 taps and walks strips of 8 x 16 output pixels: per
-//   strip it stages the dpre tile (8 x 16 x BM) and the input's 10 x 18 x
-//   BN halo (border from indices) once, by 16-byte cp.async into two
-//   stages. A strip row of 16 pixels is one k16 step: a warp reads its A
-//   fragments (dpre, pixel-major, so ldmatrix.trans) once for the 9 taps
-//   and the B fragments of two taps a time from the halo shifted by the tap
-//   (ldmatrix.x4.trans: the pixels are K and the channels run along a
-//   pixel). db is the same A against a B of ones. Warps split (co, ci) and,
-//   for narrow tiles, the strip's rows; those groups meet in shared memory
-//   in group order. Slices of the strips write a workspace that the reduce
-//   adds in slice order and rounds once: no atomics, the same bits each
-//   call. The heads (Cout = 1) take the same kernel with a 16-row A tile.
+// - dx: the slab of w' in wgmma's core-matrix order
+//   (conv3x3_dx_slab_bf16_kernel, each call: the weight changes every
+//   step), which both the interior and the fold read; the interior on conv3x3_dx_wgmma.cu's kernel (see its notes;
+//   the heads on conv3x3_dx_head_kernel<bf16>); then the fold on the
+//   tensor cores, conv3x3_dx_fold_tc_kernel: the GEMM of the fold pixels by
+//   Cin over (tap, extra dpre term, 16 channels), each term a K entry of
+//   its own, from the same slab, its fragments read straight from device
+//   memory. On CUDA cores in fp32 the fold had cost as much as the interior
+//   at the 512-channel levels (its tiles re-read w' for 32 pixels).
+// - dW and db for Cout > 16 (conv3x3_dw_wgmma_kernel + the reduce):
+//   dW[co, (tap, ci)] = sum over pixels p of dpre[p, co] xp[p + tap, ci],
+//   a GEMM with M = Cout, N = 9 Cin and K = the pixels, on wgmma
+//   m64nBNk16. A block owns 64 output by BN (64, 48, 32 or 16) input channels
+//   for the 9 taps, in three warpgroups of one kernel row each (3 x BN / 2
+//   sums a thread), and walks strips of 8 x 16 output pixels through a
+//   5-stage cp.async ring (3 strips in flight): per strip the dpre tile
+//   (pixel-major) and the input's 10 x 18 halo (border from indices) are
+//   staged once for all 9 taps and all three warpgroups (dpre's first 32
+//   channels alone where Cout <= 32: the rows past them stay zero). The
+//   halo lies as [BN / 8][pixel][8 channels], wgmma's MN-major B: a tap's
+//   shift is a 16-byte step of the descriptor's start. Per strip row each warp reads
+//   its A fragment (dpre transposed) by ldmatrix.trans once for its
+//   warpgroup's three taps and db's product against ones; a row's products
+//   go out as one group, waited one row later. No instruction but the
+//   products writes the sums (the first product writes them fresh,
+//   scale-d 0) and no product sits on a branch: either makes ptxas
+//   serialize the products (its warning C7515), at about a third of their
+//   rate. On mma.sync (conv3x3_dw_tc_kernel) these shapes are bound by its
+//   issue: a warp's 5 ldmatrix and 9 x WMT mma.sync a k16 step, the dpre
+//   tile staged again for every 32 input channels, one barrier and a full
+//   drain of two stages a strip.
+// - The heads' dW (Cout = 1: conv3x3_dw_head_kernel + the reduce) moves
+//   bytes: at dispconv_0 the 1.8 GB input against 8 GFMA. On the CUDA
+//   cores: a thread a channel pair of a pixel lane, the lane walking a
+//   strip row's columns with the pair's 3 x 3 window of the halo in
+//   registers, slid one column a pixel (3 halo words and one dpre value a
+//   pixel for 18 FMAs); two cp.async stages of 8-row strips 64, 32 or 16
+//   columns wide by Cin (16, 32, 64; 128 channels a block above), three
+//   blocks an SM. The mma.sync kernel's 16-row A tiles were 1/16 used
+//   there.
+// - Cout 2-16 (upconv_0_x) stay on conv3x3_dw_tc_kernel: mma.sync
+//   m16n8k16 over the same strips, whose 16-row tiles waste no rows there
+//   (the wgmma kernel's m64 wastes three quarters: 1.5-1.7 x its time).
+// All of them write slices of the strips to a workspace that the reduce
+// adds in slice order and rounds once: no atomics, the same bits each
+// call.
 #include "common.cuh"
 
 namespace sde {
@@ -193,40 +217,27 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The slabs of w' from a bf16 w (Cout, Cin, 3, 3) in one launch: where tc
-// is not null, the tensor-core forward's slab of w' (sde_conv3x3_arrange's
-// core-matrix order for a weight (Cin, Cout, 3, 3): (9, Cout rounded up to
+// The tensor-core slab of w' from a bf16 w (Cout, Cin, 3, 3), which the dx
+// interior's wgmma and the fold's mma.sync read: sde_conv3x3_arrange's
+// core-matrix order for a weight (Cin, Cout, 3, 3), (9, Cout rounded up to
 // 16, Cin rounded up to 8), tc[(((t * KC + kc) * NB + nb) * 2 + kb) * 64 +
-// n8 * 8 + k8] = w[kc * 16 + kb * 8 + k8][nb * 8 + n8][8 - t]); where fold
-// is not null, the fold's fp32 K-major slab (conv3x3_dx_slab_kernel's
-// layout, the bf16 values exactly). Zero past Cout and Cin.
+// n8 * 8 + k8] = w[kc * 16 + kb * 8 + k8][nb * 8 + n8][8 - t]; zero past
+// Cout and Cin.
 __global__ void __launch_bounds__(kThreads)
     conv3x3_dx_slab_bf16_kernel(const uint16_t* __restrict__ w, uint16_t* __restrict__ tc,
-                                float* __restrict__ fold, int Cin, int Cout) {
+                                int Cin, int Cout) {
   const int chunks = round_to(Cout, 16) / 16, groups = round_to(Cin, 8) / 8;
-  const int kp = round_to(Cout, 8), np = round_to(Cin, 4);
-  const long long n1 = tc != nullptr ? 9LL * chunks * 16 * groups * 8 : 0;
-  const long long n2 = fold != nullptr ? 9LL * kp * np : 0;
+  const long long n = 9LL * chunks * 16 * groups * 8;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n1 + n2; i += stride) {
-    if (i < n1) {
-      const int k8 = static_cast<int>(i % 8), n8 = static_cast<int>((i / 8) % 8);
-      const int kb = static_cast<int>((i / 64) % 2);
-      const long long blk = i / 128;  // (tap, kc, nb)
-      const int nb = static_cast<int>(blk % groups);
-      const int kc = static_cast<int>((blk / groups) % chunks);
-      const int t = static_cast<int>(blk / ((long long)groups * chunks));
-      const int ci = nb * 8 + n8, co = kc * 16 + kb * 8 + k8;
-      tc[i] = (ci < Cin && co < Cout) ? w[((long long)co * Cin + ci) * 9 + 8 - t] : uint16_t(0);
-    } else {
-      const long long j = i - n1;
-      const int ci = static_cast<int>(j % np);
-      const int co = static_cast<int>((j / np) % kp);
-      const int t = static_cast<int>(j / ((long long)np * kp));
-      fold[j] = (co < Cout && ci < Cin)
-                    ? __uint_as_float(uint32_t(w[((long long)co * Cin + ci) * 9 + 8 - t]) << 16)
-                    : 0.f;
-    }
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    const int k8 = static_cast<int>(i % 8), n8 = static_cast<int>((i / 8) % 8);
+    const int kb = static_cast<int>((i / 64) % 2);
+    const long long blk = i / 128;  // (tap, kc, nb)
+    const int nb = static_cast<int>(blk % groups);
+    const int kc = static_cast<int>((blk / groups) % chunks);
+    const int t = static_cast<int>(blk / ((long long)groups * chunks));
+    const int ci = nb * 8 + n8, co = kc * 16 + kb * 8 + k8;
+    tc[i] = (ci < Cin && co < Cout) ? w[((long long)co * Cin + ci) * 9 + 8 - t] : uint16_t(0);
   }
 }
 
@@ -310,7 +321,7 @@ struct FoldArgs {
   int top, bot, left, right;  // where the padded rows -1 and H, columns -1 and W land
   int rows[2], nr;            // R ascending
   int cols[2], nc;            // C ascending
-  int nseg;
+  int nseg, tile;              // segments; destinations a tile
   int seg_kind[kFoldSeg];        // 0 a row, 1 a column, 2 a corner
   int seg_y[kFoldSeg], seg_x[kFoldSeg];  // the segment's row (0, 2) and column (1, 2)
   int seg_tile[kFoldSeg + 1];    // each segment's first tile, then the tiles
@@ -327,7 +338,7 @@ __device__ __forceinline__ int skip_set(int j, const int (&s)[2], int ns) {
 // -1 past the segment's end.
 __device__ __forceinline__ void fold_dest(const FoldArgs& a, int kind, int sy, int sx, int base,
                                           int p, int& b, int& y, int& x) {
-  const int d = base * kFoldP + p;
+  const int d = base * a.tile + p;
   b = -1;
   if (kind == 0) {
     const int per = a.W - a.nc;
@@ -386,14 +397,8 @@ __device__ __forceinline__ bool fold_terms(const FoldArgs& a, int b, int y, int 
 // shared-memory stages, and the next step's A (in registers) and B (by
 // cp.async) are in flight while this one is summed, one barrier a step.
 // dx += the sums at the end: each (pixel, channel) belongs to one thread of
-// the grid. T: dpre's and dx's dtype; a bf16 dx gets the fp32 sum of its
-// bf16 value and the fold, rounded once.
-__device__ __forceinline__ float ldg_float(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ldg_float(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
-}
-
-template <typename T>
+// the grid. fp32 (the bf16 fold runs on the tensor cores:
+// conv3x3_dx_fold_tc_kernel).
 __global__ void __launch_bounds__(kThreads) conv3x3_dx_fold_kernel(const FoldArgs a) {
   __shared__ float As[2][kFoldK][kFoldP + 1];  // +1: the co-major stores hit distinct banks
   __shared__ __align__(16) float Bs[2][kFoldK][kFoldN];
@@ -466,7 +471,7 @@ __global__ void __launch_bounds__(kThreads) conv3x3_dx_fold_kernel(const FoldArg
       for (int k = 0; k < 3; ++k) {
         const bool v = co < a.Cout && off[j][k] >= 0;
         ok |= v << (j * 3 + k);
-        raw[j][k] = ldg_float(static_cast<const T*>(a.dpre) +
+        raw[j][k] = __ldg(static_cast<const float*>(a.dpre) +
                               (v ? (long long)off[j][k] * a.Cout + co : 0));
       }
   };
@@ -527,12 +532,129 @@ __global__ void __launch_bounds__(kThreads) conv3x3_dx_fold_kernel(const FoldArg
     int b, y, x;
     fold_dest(a, kind, sy, sx, base, pg * 2 + i, b, y, x);
     if (b < 0) continue;
-    T* dst = static_cast<T*>(a.dx) + (((long long)b * a.H + y) * a.W + x) * a.Cin;
+    float* dst = static_cast<float*>(a.dx) + (((long long)b * a.H + y) * a.W + x) * a.Cin;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int ci = n0 + ng * 4 + j;
-      if (ci < a.Cin) dst[ci] = from_float<T>(to_float(dst[ci]) + acc[i][j]);
+      if (ci < a.Cin) dst[ci] += acc[i][j];
     }
+  }
+}
+
+constexpr int kFoldTcP = 64;  // border pixels a block: four warps of 16
+constexpr int kFoldTcN = 64;  // input channels a block: eight n8 tiles a warp
+
+__device__ __forceinline__ uint32_t ldg32(const uint16_t* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+// The bf16 border fold on mma.sync m16n8k16 (bf16 in, fp32 sums): the GEMM
+// of the fold pixels (M) by Cin (N) over K = (tap of the tile's mask, extra
+// term, 16 dpre channels), each extra dpre term a K entry of its own (its
+// bf16 value, not a sum of terms), against the tap's w' tile of the
+// tensor-core slab (conv3x3_dx_slab_bf16_kernel's: tap 8 - t holds w[.., t]).
+// A row segment's pixels carry one term a tap (the border row's), a column
+// segment's one (the border column's), a corner's up to three. grid (the
+// segments' tiles of 64, ceil(Cin / 64)); 128 threads, warp w the tile's
+// pixels 16w .. 16w + 15 by the block's 64 channels; the A and B fragments
+// are read straight from device memory (32-bit loads, the slab in the L2
+// and L1). Each (pixel, channel) belongs to one lane of the grid: dx +=
+// the sum in fp32, rounded once more.
+__global__ void __launch_bounds__(128) conv3x3_dx_fold_tc_kernel(const FoldArgs a,
+                                                                 const uint16_t* __restrict__ slab,
+                                                                 int KC, int NB, int vec_a) {
+  __shared__ int mask_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int tile = blockIdx.x, n0 = blockIdx.y * kFoldTcN;
+  int kind = 0, sy = 0, sx = 0, first = 0;
+#pragma unroll
+  for (int k = 0; k < kFoldSeg; ++k)
+    if (k < a.nseg && tile >= a.seg_tile[k]) {
+      kind = a.seg_kind[k];
+      sy = a.seg_y[k];
+      sx = a.seg_x[k];
+      first = a.seg_tile[k];
+    }
+  const int base = tile - first;
+  if (tid == 0) mask_s = 0;
+  __syncthreads();
+  if (tid < kFoldTcP) {
+    int b, y, x;
+    fold_dest(a, kind, sy, sx, base, tid, b, y, x);
+    if (b >= 0) {
+      int m = 0, off[3];
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+        if (fold_terms(a, b, y, x, t / 3, t % 3, off)) m |= 1 << t;
+      atomicOr(&mask_s, m);
+    }
+  }
+  __syncthreads();
+  const int mask = mask_s;
+  // The term slots a segment's pixels can carry (fold_terms' order: inside
+  // row with border column, border row with inside column, both borders).
+  const int slots = kind == 0 ? 2 : kind == 1 ? 1 : 7;
+  int rb[2], ry[2], rx[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    fold_dest(a, kind, sy, sx, base, warp * 16 + g + 8 * h, rb[h], ry[h], rx[h]);
+  const uint16_t* dp = static_cast<const uint16_t*>(a.dpre);
+  // Two dpre values (channels co, co + 1) of pixel offset `off`, zero past
+  // Cout and where the term does not exist.
+  auto pair = [&](int off, int co) -> uint32_t {
+    if (off < 0 || co >= a.Cout) return 0u;
+    const uint16_t* p = dp + (long long)off * a.Cout + co;
+    if (vec_a) return ldg32(p);
+    return uint32_t(__ldg(p)) | (co + 1 < a.Cout ? uint32_t(__ldg(p + 1)) << 16 : 0u);
+  };
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int m = mask; m != 0; m &= m - 1) {
+    const int t = __ffs(m) - 1;
+    int off[2][3];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      off[h][0] = off[h][1] = off[h][2] = -1;
+      if (rb[h] >= 0) fold_terms(a, rb[h], ry[h], rx[h], t / 3, t % 3, off[h]);
+    }
+    const uint16_t* bt = slab + (long long)(8 - t) * KC * NB * 128;
+#pragma unroll
+    for (int sl = 0; sl < 3; ++sl) {
+      if (!((slots >> sl) & 1)) continue;
+      for (int kc = 0; kc < KC; ++kc) {
+        const int co = kc * 16 + 2 * q;
+        uint32_t af[4];
+        af[0] = pair(off[0][sl], co);
+        af[1] = pair(off[1][sl], co);
+        af[2] = pair(off[0][sl], co + 8);
+        af[3] = pair(off[1][sl], co + 8);
+        const uint16_t* bk = bt + (long long)kc * NB * 128 + g * 8 + 2 * q;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int nb = n0 / 8 + j;
+          if (nb < NB) mma_bf16(acc[j], af, ldg32(bk + nb * 128), ldg32(bk + nb * 128 + 64));
+        }
+      }
+    }
+  }
+  // A fragment holds (row g, channels 2q, 2q + 1) and (row g + 8, the same)
+  // of each 8 channels.
+  __nv_bfloat16* dx = static_cast<__nv_bfloat16*>(a.dx);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (rb[h] < 0) continue;
+    __nv_bfloat16* dst = dx + (((long long)rb[h] * a.H + ry[h]) * a.W + rx[h]) * a.Cin;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ci = n0 + j * 8 + 2 * q + e;
+        if (ci < a.Cin) dst[ci] = __float2bfloat16(__bfloat162float(dst[ci]) + acc[j][2 * h + e]);
+      }
   }
 }
 
@@ -1112,18 +1234,12 @@ __global__ void __launch_bounds__(256, Cfg::MINB) conv3x3_dw_tc_kernel(const TAr
       if (co0 + m < a.Cout) out[(long long)(co0 + m) * a.N + 9 * a.Cin] = red[BM * BN * 9 + m];
 }
 
-// Calls f with the tensor-core dW configuration for (Cin, Cout): 16 or 32
-// input channels a tile, 16, 32 or 64 output channels.
+// Calls f with the mma.sync dW configuration for Cin (dw_bf16_route gives
+// it Cout 2-16): 16 or 32 input channels a tile, 16 output channels.
 template <typename F>
 auto with_dw_tc_cfg(int Cin, int Cout, F f) {
-  if (Cin <= 16) {
-    if (Cout <= 16) return f(TCfg<1, 1, 2>{});
-    if (Cout <= 32) return f(TCfg<2, 1, 2>{});
-    return f(TCfg<2, 2, 2>{});
-  }
-  if (Cout <= 16) return f(TCfg<1, 1, 4>{});
-  if (Cout <= 32) return f(TCfg<2, 1, 4>{});
-  return f(TCfg<2, 2, 4>{});
+  if (Cin <= 16) return f(TCfg<1, 1, 2>{});
+  return f(TCfg<1, 1, 4>{});
 }
 
 template <class Cfg>
@@ -1157,6 +1273,520 @@ cudaError_t dw_tc_plan(int B, int H, int W, int Cin, int Cout, int device, long 
                              ((W + Cfg::TW - 1) / Cfg::TW);
     const long long tiles =
         (long long)((Cout + Cfg::BM - 1) / Cfg::BM) * ((Cin + Cfg::BN - 1) / Cfg::BN);
+    split_strips(strips, tiles, cap, Cin, Cout, plan);
+    return cudaSuccess;
+  });
+}
+
+// ---- dW in bf16 on wgmma -----------------------------------------------------
+
+constexpr int kWgThreads = 384;                 // three warpgroups, one kernel row each
+constexpr int kWgBM = 64;                       // output channels a block: one m64 tile
+constexpr int kWgTH = kTcTH, kWgTW = kTcTW;     // strips of 8 x 16: a strip row is one k16
+constexpr int kWgHW = kWgTW + 2;                // halo width
+constexpr int kWgNPOS = (kWgTH + 2) * kWgHW;    // halo pixels
+// Halo pixels a channel group: one past a multiple of 8, so that the
+// 16-byte copies of 8 neighbouring groups of a pixel land in distinct banks.
+constexpr int kWgNP = (kWgNPOS + 7) / 8 * 8 + 1;
+constexpr int kWgDP = kWgBM + 8;                // dpre pixel pitch (bf16): ldmatrix rows in distinct banks
+constexpr int kWgDPRE = kWgTH * kWgTW * kWgDP;  // a stage's dpre tile (bf16)
+constexpr int kWgOnes = 128;                    // db's B: a 16 x 8 tile of bf16 ones
+static_assert(kWgNP % 8 == 1, "8 channel groups of a pixel in distinct banks");
+
+// BN input channels a block. A stage holds the dpre tile, pixel-major (the
+// A operand, dpre transposed, read by ldmatrix.trans into registers), and
+// the input's halo as [BN / 8][pixel][8 channels]: wgmma's MN-major B, whose
+// core matrices are 8 consecutive pixels of one channel group, so a tap's
+// shift is a 16-byte step of the descriptor's start. After the walk the
+// same memory holds the tile's sums in fp32.
+template <int BN_, int DG_>
+struct WgCfg {
+  static constexpr int BN = BN_;
+  static constexpr int DG = DG_;                   // dpre channel groups staged: Cout <= 8 DG
+  static constexpr int S = 5;                       // stages
+  static constexpr int L = S - 2;                   // strips loaded ahead
+  static constexpr int HALO = BN / 8 * kWgNP * 8;  // bf16
+  static constexpr int STAGE = kWgDPRE + HALO;     // bf16, a multiple of 8
+  static constexpr int PIPE_BYTES = S * STAGE * 2;
+  static constexpr int RED_BYTES = (kWgBM * BN * 9 + kWgBM) * 4;
+  static constexpr int ONES_AT = (PIPE_BYTES > RED_BYTES ? PIPE_BYTES : RED_BYTES);
+  static constexpr int SMEM = ONES_AT + kWgOnes * 2;
+};
+
+// grid (Cout tiles x Cin tiles, splits), the Cin tile fastest. Warpgroup wg
+// sums kernel row ky = wg: taps (wg, 0), (wg, 1), (wg, 2) on m64nBNk16, 3 x
+// BN / 2 sums a thread, and db, A against a B of ones (m64n8k16). Per strip
+// row each warp reads its A fragment once for its warpgroup's three taps;
+// a row's four products go out as one group, waited one row later, while
+// the next strips load.
+template <class Cfg>
+__global__ void __launch_bounds__(kWgThreads, 1) conv3x3_dw_wgmma_kernel(const TArgs a) {
+  constexpr int BN = Cfg::BN, TH = kWgTH, TW = kWgTW, S = Cfg::S, L = Cfg::L;
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  uint16_t* smem = reinterpret_cast<uint16_t*>(wg_smem);
+  uint16_t* ones = reinterpret_cast<uint16_t*>(wg_smem + Cfg::ONES_AT);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wq = warp & 3;
+  const int nt = blockIdx.x % a.tiles_n, mt = blockIdx.x / a.tiles_n;
+  const int co0 = mt * kWgBM, ci0 = nt * BN;
+  const int split = blockIdx.y;
+  const long long s_lo = (long long)split * a.per_split;
+  const int ns = static_cast<int>(min((long long)a.per_split, a.strips - s_lo));
+  const int cw = min(kWgBM, a.Cout - co0);  // the tile's output channels
+  for (int i = tid; i < kWgOnes; i += kWgThreads) ones[i] = 0x3F80;
+  if (!a.vec_d || !a.vec_x || Cfg::DG < kWgBM / 8) {
+    // The scalar stagings write the tile's channels alone, and the copies
+    // the first DG channel groups of dpre: the rest of every stage stays
+    // zero.
+    for (int i = tid; i < S * Cfg::STAGE; i += kWgThreads) smem[i] = 0;
+  }
+  __syncthreads();
+
+  auto strip_at = [&](long long s, int& b, int& oy0, int& ox0) {
+    ox0 = static_cast<int>(s % a.strips_w) * TW;
+    const long long t = s / a.strips_w;
+    oy0 = static_cast<int>(t % a.strips_h) * TH;
+    b = static_cast<int>(t / a.strips_h);
+  };
+
+  // Strip s into a stage: the dpre tile (zero past the image and Cout),
+  // then the input's halo (border from indices; zero past Cin and where
+  // the zero border reads outside the image).
+  auto load = [&](long long s, uint16_t* st) {
+    int b, oy0, ox0;
+    strip_at(s, b, oy0, ox0);
+    if (a.vec_d) {
+      constexpr int DG = Cfg::DG;
+#pragma unroll 1
+      for (int i = tid; i < TH * TW * DG; i += kWgThreads) {
+        const int v = i % DG, p = i / DG;
+        const int oy = oy0 + p / TW, ox = ox0 + p % TW, co = co0 + v * 8;
+        const bool ok = oy < a.H && ox < a.W && co < a.Cout;
+        const uint16_t* src =
+            ok ? a.dpre + (((long long)b * a.H + oy) * a.W + ox) * a.Cout + co : a.dpre;
+        cp_async16(st + p * kWgDP + v * 8, src, ok);
+      }
+    } else {
+      for (int i = tid; i < TH * TW * cw; i += kWgThreads) {
+        const int m = i % cw, p = i / cw;
+        const int oy = oy0 + p / TW, ox = ox0 + p % TW;
+        const bool ok = oy < a.H && ox < a.W;
+        st[p * kWgDP + m] =
+            ok ? a.dpre[(((long long)b * a.H + oy) * a.W + ox) * a.Cout + co0 + m] : uint16_t(0);
+      }
+    }
+    uint16_t* xs = st + kWgDPRE;
+    const uint16_t* xb = a.x + (long long)b * a.H * a.W * a.Cin;
+    if (a.vec_x) {
+      constexpr int V = BN / 8;
+#pragma unroll 1
+      for (int i = tid; i < kWgNPOS * V; i += kWgThreads) {
+        const int v = i % V, pos = i / V;
+        const int r = pos / kWgHW, c = pos - r * kWgHW;
+        const int hs = src_index(oy0 - 1 + r, a.H, a.border);
+        const int wsrc = src_index(ox0 - 1 + c, a.W, a.border);
+        const int ci = ci0 + v * 8;
+        const bool ok = hs >= 0 && wsrc >= 0 && ci < a.Cin;
+        const uint16_t* src = ok ? xb + ((long long)hs * a.W + wsrc) * a.Cin + ci : a.x;
+        cp_async16(xs + (v * kWgNP + pos) * 8, src, ok);
+      }
+    } else {
+      for (int i = tid; i < kWgNPOS * BN; i += kWgThreads) {
+        const int n = i % BN, pos = i / BN;
+        const int r = pos / kWgHW, c = pos - r * kWgHW;
+        const int hs = src_index(oy0 - 1 + r, a.H, a.border);
+        const int wsrc = src_index(ox0 - 1 + c, a.W, a.border);
+        const int ci = ci0 + n;
+        const bool ok = hs >= 0 && wsrc >= 0 && ci < a.Cin;
+        xs[((n >> 3) * kWgNP + pos) * 8 + (n & 7)] =
+            ok ? xb[((long long)hs * a.W + wsrc) * a.Cin + ci] : uint16_t(0);
+      }
+    }
+  };
+
+  // The tile's sums. No instruction but the products writes them: the
+  // first strip's first row writes them fresh (scale-d 0; a block walks at
+  // least one strip). Every warpgroup sums db (an n8 product a row) and the
+  // first warpgroup of the first Cin tile writes it: no product sits on a
+  // branch, which would make ptxas serialize them.
+  float acc[3][BN / 2];
+  float dacc[4];
+  const uint64_t ones_desc = smem_desc(ones, 128, 256);
+  // A: lanes 8j .. 8j + 7 point at pixels (j / 2) * 8 + 0..7 of the row, at
+  // output channels (j % 2) * 8 of the warp's m16 rows: matrices (k 0-7, m
+  // 0-7), (k 0-7, m 8-15), (k 8-15, m 0-7), (k 8-15, m 8-15) transposed are
+  // a0-a3 (as in conv3x3_dw_tc_kernel).
+  const int a_pix = (lane & 7) + ((lane >> 4) & 1) * 8;
+  const int a_col = wq * 16 + ((lane >> 3) & 1) * 8;
+  // The A fragments of two strip rows: a row's products read them after
+  // issue, so a row's registers stay live until the next row's wait.
+  uint32_t af[2][4] = {};
+
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    if (i < ns) load(s_lo + i, smem + i * Cfg::STAGE);
+    cp_async_commit();
+  }
+  for (int k = 0; k < ns; ++k) {
+    cp_async_wait<L - 1>();
+    // The halo is read by wgmma through the async proxy.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    // Strip k has landed for every thread; every warpgroup's products of
+    // strip k - 2 are done (a row's wait leaves only the row before it).
+    __syncthreads();
+    if (k + L < ns) load(s_lo + k + L, smem + ((k + L) % S) * Cfg::STAGE);
+    cp_async_commit();
+    const uint16_t* ds = smem + (k % S) * Cfg::STAGE;
+    const uint16_t* xs = ds + kWgDPRE;
+    // B of tap (wg, kx) at strip row rr, MN-major: the halo from pixel
+    // (rr + wg, kx), 8 pixels a core matrix, the next 8 pixels 128 bytes on
+    // (the leading offset), the next 8 input channels a group on (the
+    // stride offset). A strip's rows past H hold zero dpre: their products
+    // add nothing.
+    const uint64_t dbx = smem_desc(xs + wg * kWgHW * 8, 128, kWgNP * 16);
+#pragma unroll
+    for (int rr = 0; rr < TH; ++rr) {
+      ldsm_x4_trans(af[rr & 1], ds + (rr * TW + a_pix) * kWgDP + a_col);
+      wgmma_fence();
+      const int scale = rr > 0 || k > 0;
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+        wgmma_rs_tb<1>(acc[t], af[rr & 1], dbx + (((rr * kWgHW + t) * 16) >> 4), scale);
+      wgmma_rs_tb<0>(dacc, af[rr & 1], ones_desc, scale);
+      wgmma_commit();
+      // The previous row's products are done: only now may its fragment
+      // registers take the next row's loads.
+      wgmma_wait<1>();
+      keep_live(af[(rr + 1) & 1]);
+    }
+  }
+  wgmma_wait<0>();
+  keep_live(af[0]);
+  keep_live(af[1]);
+#pragma unroll
+  for (int t = 0; t < 3; ++t) fence_operand(acc[t]);
+  fence_operand(dacc);
+  cp_async_wait<0>();
+  __syncthreads();  // every warpgroup is done with the stages
+
+  // The tile's sums in shared memory, red[(m * BN + n) * 9 + tap] (each
+  // warpgroup its own taps), then db's 64 values; then contiguous runs. A
+  // fragment holds (row g, columns 2q, 2q + 1) and (row g + 8, the same) of
+  // each 8 columns.
+  float* red = reinterpret_cast<float*>(wg_smem);
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          red[((wq * 16 + g + 8 * h) * BN + j * 8 + 2 * q + e) * 9 + wg * 3 + t] =
+              acc[t][4 * j + 2 * h + e];
+  if (wg == 0 && nt == 0 && q == 0) {
+    red[kWgBM * BN * 9 + wq * 16 + g] = dacc[0];
+    red[kWgBM * BN * 9 + wq * 16 + g + 8] = dacc[2];
+  }
+  __syncthreads();
+  float* out = a.ws + (long long)split * a.Cout * a.N;
+  for (int i = tid; i < kWgBM * BN * 9; i += kWgThreads) {
+    const int m = i / (BN * 9), rest = i - m * BN * 9;
+    const int co = co0 + m, ci = ci0 + rest / 9;
+    if (co < a.Cout && ci < a.Cin) out[(long long)co * a.N + ci0 * 9 + rest] = red[i];
+  }
+  if (nt == 0)
+    for (int m = tid; m < kWgBM; m += kWgThreads)
+      if (co0 + m < a.Cout) out[(long long)(co0 + m) * a.N + 9 * a.Cin] = red[kWgBM * BN * 9 + m];
+}
+
+// ---- dW of the heads (Cout = 1) in bf16 on the CUDA cores ------------------
+
+constexpr int kHwThreads = 256;
+constexpr int kHwTH = 8;       // strip rows
+constexpr int kHwStages = 2;
+
+// C input channels a block (a channel pair a thread), TW strip columns.
+// The threads form LANES = 256 / (C / 2) pixel lanes; a lane walks SEG
+// columns of RPL strip rows, holding its channel pair's 3 x 3 window of the
+// halo in registers and sliding it one column a pixel: 3 new halo words
+// and one dpre value a pixel for 18 FMAs.
+template <int C_, int TW_>
+struct HwCfg {
+  static constexpr int C = C_, TW = TW_;
+  static constexpr int CP = C / 2;                  // channel pairs
+  static constexpr int LANES = kHwThreads / CP;
+  static constexpr int RPL = LANES >= kHwTH ? 1 : kHwTH / LANES;   // rows a lane
+  static constexpr int SEGS = LANES >= kHwTH ? LANES / kHwTH : 1;  // lanes a row
+  static constexpr int SEG = TW / SEGS;             // columns a lane
+  static constexpr int HP = C + 8;                  // halo pixel pitch (bf16)
+  static constexpr int HALO = (kHwTH + 2) * (TW + 2) * HP;
+  static constexpr int DPRE = kHwTH * TW;           // dpre, fp32
+  static constexpr int STAGE = HALO * 2 + DPRE * 4;  // bytes, a multiple of 16
+  static constexpr int RED = LANES * (9 * C + 1);   // the lanes' sums, fp32
+  static constexpr int SMEM = kHwStages * STAGE > RED * 4 ? kHwStages * STAGE : RED * 4;
+  static_assert(LANES >= kHwTH ? LANES == kHwTH * SEGS : LANES * RPL == kHwTH,
+                "the lanes tile the strip's rows");
+  static_assert(TW % SEGS == 0, "the lanes tile the strip's columns");
+  static_assert(STAGE % 16 == 0, "stages stay 16-byte aligned");
+};
+
+// grid (Cin tiles of C, splits). The dpre tile is staged in fp32 (a 16-bit
+// value a pixel), the halo (border from indices, zero past the image under
+// the zero border and past Cin) by 16-byte cp.async; two stages, the next
+// strip in flight, three blocks an SM (more stages at fewer blocks an SM
+// ran slower on an H100). After the walk the lanes' sums meet in lane
+// order.
+template <class Cfg>
+__global__ void __launch_bounds__(kHwThreads, 3) conv3x3_dw_head_kernel(const TArgs a) {
+  constexpr int C = Cfg::C, TW = Cfg::TW, CP = Cfg::CP, HP = Cfg::HP, S = kHwStages;
+  extern __shared__ __align__(128) unsigned char hw_smem[];
+  const int tid = threadIdx.x;
+  const int cp = tid % CP, lane = tid / CP;
+  const int ci0 = blockIdx.x * C;
+  const int split = blockIdx.y;
+  const long long s_lo = (long long)split * a.per_split;
+  const int ns = static_cast<int>(min((long long)a.per_split, a.strips - s_lo));
+
+  auto strip_at = [&](long long s, int& b, int& oy0, int& ox0) {
+    ox0 = static_cast<int>(s % a.strips_w) * TW;
+    const long long t = s / a.strips_w;
+    oy0 = static_cast<int>(t % a.strips_h) * kHwTH;
+    b = static_cast<int>(t / a.strips_h);
+  };
+  auto halo_of = [&](int st) { return reinterpret_cast<uint16_t*>(hw_smem + st * Cfg::STAGE); };
+  auto dpre_of = [&](int st) {
+    return reinterpret_cast<float*>(hw_smem + st * Cfg::STAGE + Cfg::HALO * 2);
+  };
+
+  auto load = [&](long long s, int st) {
+    int b, oy0, ox0;
+    strip_at(s, b, oy0, ox0);
+    uint16_t* xs = halo_of(st);
+    const uint16_t* xb = a.x + (long long)b * a.H * a.W * a.Cin;
+    constexpr int NPOS = (kHwTH + 2) * (TW + 2);
+    if (a.vec_x) {
+      constexpr int V = C / 8;
+      for (int i = tid; i < NPOS * V; i += kHwThreads) {
+        const int v = i % V, pos = i / V;
+        const int r = pos / (TW + 2), c = pos - r * (TW + 2);
+        const int hs = src_index(oy0 - 1 + r, a.H, a.border);
+        const int wsrc = src_index(ox0 - 1 + c, a.W, a.border);
+        const int ci = ci0 + v * 8;
+        const bool ok = hs >= 0 && wsrc >= 0 && ci < a.Cin;
+        cp_async16(xs + pos * HP + v * 8,
+                   ok ? xb + ((long long)hs * a.W + wsrc) * a.Cin + ci : a.x, ok);
+      }
+    } else {
+      for (int i = tid; i < NPOS * C; i += kHwThreads) {
+        const int n = i % C, pos = i / C;
+        const int r = pos / (TW + 2), c = pos - r * (TW + 2);
+        const int hs = src_index(oy0 - 1 + r, a.H, a.border);
+        const int wsrc = src_index(ox0 - 1 + c, a.W, a.border);
+        const bool ok = hs >= 0 && wsrc >= 0 && ci0 + n < a.Cin;
+        xs[pos * HP + n] = ok ? xb[((long long)hs * a.W + wsrc) * a.Cin + ci0 + n] : uint16_t(0);
+      }
+    }
+    float* ds = dpre_of(st);
+    for (int p = tid; p < kHwTH * TW; p += kHwThreads) {
+      const int oy = oy0 + p / TW, ox = ox0 + p % TW;
+      ds[p] = oy < a.H && ox < a.W
+                  ? __uint_as_float(uint32_t(a.dpre[((long long)b * a.H + oy) * a.W + ox]) << 16)
+                  : 0.f;
+    }
+  };
+
+  float acc[9][2], dsum = 0.f;
+#pragma unroll
+  for (int t = 0; t < 9; ++t) acc[t][0] = acc[t][1] = 0.f;
+  // This lane's rows and columns of a strip.
+  const int row0 = (lane % (Cfg::LANES >= kHwTH ? kHwTH : Cfg::LANES)) * Cfg::RPL;
+  const int col0 = (Cfg::LANES >= kHwTH ? lane / kHwTH : 0) * Cfg::SEG;
+
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < ns) load(s_lo + i, i);
+    cp_async_commit();
+  }
+  for (int k = 0; k < ns; ++k) {
+    cp_async_wait<S - 2>();
+    // Strip k has landed for every thread (the dpre tile by plain stores),
+    // and every lane is done with strip k - 1, whose stage the load below
+    // overwrites.
+    __syncthreads();
+    if (k + S - 1 < ns) load(s_lo + k + S - 1, (k + S - 1) % S);
+    cp_async_commit();
+    const uint16_t* xs = halo_of(k % S);
+    const float* ds = dpre_of(k % S);
+#pragma unroll
+    for (int rr = 0; rr < Cfg::RPL; ++rr) {
+      const int r = row0 + rr;
+      // The window of halo columns c .. c + 2 of rows r .. r + 2, as
+      // channel pairs.
+      uint32_t win[3][3];
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+        for (int kx = 0; kx < 2; ++kx)
+          win[ky][kx + 1] = lds32(xs + ((r + ky) * (TW + 2) + col0 + kx) * HP + 2 * cp);
+#pragma unroll 4
+      for (int c = 0; c < Cfg::SEG; ++c) {
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky) {
+          win[ky][0] = win[ky][1];
+          win[ky][1] = win[ky][2];
+          win[ky][2] = lds32(xs + ((r + ky) * (TW + 2) + col0 + c + 2) * HP + 2 * cp);
+        }
+        const float d = ds[r * TW + col0 + c];
+        dsum += d;
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+          for (int kx = 0; kx < 3; ++kx) {
+            acc[ky * 3 + kx][0] = fmaf(d, __uint_as_float(win[ky][kx] << 16), acc[ky * 3 + kx][0]);
+            acc[ky * 3 + kx][1] =
+                fmaf(d, __uint_as_float(win[ky][kx] & 0xffff0000u), acc[ky * 3 + kx][1]);
+          }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every lane is done with the stages
+
+  // red[lane][(ci * 9 + tap)], then db at [lane][9 C]; the lanes added in
+  // lane order, then the tile's columns written whole.
+  float* red = reinterpret_cast<float*>(hw_smem);
+  constexpr int RW = 9 * C + 1;
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    red[lane * RW + (2 * cp) * 9 + t] = acc[t][0];
+    red[lane * RW + (2 * cp + 1) * 9 + t] = acc[t][1];
+  }
+  if (cp == 0) red[lane * RW + 9 * C] = dsum;
+  __syncthreads();
+  float* out = a.ws + (long long)split * a.N;
+  for (int i = tid; i < RW; i += kHwThreads) {
+    float v = red[i];
+    for (int l = 1; l < Cfg::LANES; ++l) v += red[l * RW + i];
+    if (i < 9 * C) {
+      if (ci0 + i / 9 < a.Cin) out[ci0 * 9 + i] = v;
+    } else if (blockIdx.x == 0) {
+      out[9 * a.Cin] = v;
+    }
+  }
+}
+
+// Calls f with the heads' dW configuration for Cin: 16, 32 or 64 channels
+// a block and 64, 32 or 16 strip columns; 128 (16 columns) above.
+template <typename F>
+auto with_dw_head_cfg(int Cin, F f) {
+  if (Cin <= 16) return f(HwCfg<16, 64>{});
+  if (Cin <= 32) return f(HwCfg<32, 32>{});
+  if (Cin <= 64) return f(HwCfg<64, 16>{});
+  return f(HwCfg<128, 16>{});
+}
+
+template <class Cfg>
+cudaError_t dw_head_capacity(int device, int* cap) {
+  static int cached[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cached[device] == 0) {
+    const auto kernel = &conv3x3_dw_head_kernel<Cfg>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kHwThreads, Cfg::SMEM);
+    if (err != cudaSuccess) return err;
+    err = sm_count(device, &sms);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cached[device] = per_sm * sms;
+  }
+  *cap = cached[device];
+  return cudaSuccess;
+}
+
+cudaError_t dw_head_plan(int B, int H, int W, int Cin, int device, long long* plan) {
+  return with_dw_head_cfg(Cin, [&](auto cfg) {
+    using Cfg = decltype(cfg);
+    int cap = 0;
+    const cudaError_t err = dw_head_capacity<Cfg>(device, &cap);
+    if (err != cudaSuccess) return err;
+    const long long strips = (long long)B * ((H + kHwTH - 1) / kHwTH) *
+                             ((W + Cfg::TW - 1) / Cfg::TW);
+    split_strips(strips, (Cin + Cfg::C - 1) / Cfg::C, cap, Cin, 1, plan);
+    return cudaSuccess;
+  });
+}
+
+// The wgmma dW kernel's input channels a tile for Cin: 16, 32, 48 (Cin an
+// odd multiple of 16 times 3, upconv_1_1's 96: two tiles, not three) or 64.
+int dw_wgmma_bn(int Cin) {
+  if (Cin <= 16) return 16;
+  if (Cin <= 32) return 32;
+  if (Cin % 64 != 0 && Cin % 48 == 0) return 48;
+  if (Cin % 64 != 0 && Cin % 32 == 0) return 32;
+  return 64;
+}
+
+// Calls f with the wgmma dW configuration for (Cin, Cout): dw_wgmma_bn's
+// input tile; the dpre tile's first 4 channel groups alone where Cout <= 32
+// (the m64 tile's other rows stay zero).
+template <typename F>
+auto with_dw_wgmma_cfg(int Cin, int Cout, F f) {
+  const int bn = dw_wgmma_bn(Cin);
+  if (Cout <= 32) {
+    if (bn == 16) return f(WgCfg<16, 4>{});
+    if (bn == 32) return f(WgCfg<32, 4>{});
+    if (bn == 48) return f(WgCfg<48, 4>{});
+    return f(WgCfg<64, 4>{});
+  }
+  if (bn == 16) return f(WgCfg<16, 8>{});
+  if (bn == 32) return f(WgCfg<32, 8>{});
+  if (bn == 48) return f(WgCfg<48, 8>{});
+  return f(WgCfg<64, 8>{});
+}
+
+// Which bf16 dW kernel takes (Cin, Cout): 2 conv3x3_dw_wgmma_kernel (Cout
+// > 16), 3 conv3x3_dw_head_kernel (the heads, Cout = 1), 1
+// conv3x3_dw_tc_kernel (2-16 output channels, where the mma.sync kernel's
+// 16-row tiles waste no rows).
+int dw_bf16_route(int Cin, int Cout) { return Cout > 16 ? 2 : Cout == 1 ? 3 : 1; }
+
+template <class Cfg>
+cudaError_t dw_wgmma_capacity(int device, int* cap) {
+  static int cached[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cached[device] == 0) {
+    const auto kernel = &conv3x3_dw_wgmma_kernel<Cfg>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWgThreads, Cfg::SMEM);
+    if (err != cudaSuccess) return err;
+    err = sm_count(device, &sms);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cached[device] = per_sm * sms;
+  }
+  *cap = cached[device];
+  return cudaSuccess;
+}
+
+cudaError_t dw_wgmma_plan(int B, int H, int W, int Cin, int Cout, int device, long long* plan) {
+  return with_dw_wgmma_cfg(Cin, Cout, [&](auto cfg) {
+    using Cfg = decltype(cfg);
+    int cap = 0;
+    const cudaError_t err = dw_wgmma_capacity<Cfg>(device, &cap);
+    if (err != cudaSuccess) return err;
+    const long long strips = (long long)B * ((H + kWgTH - 1) / kWgTH) *
+                             ((W + kWgTW - 1) / kWgTW);
+    const long long tiles =
+        (long long)((Cout + kWgBM - 1) / kWgBM) * ((Cin + Cfg::BN - 1) / Cfg::BN);
     split_strips(strips, tiles, cap, Cin, Cout, plan);
     return cudaSuccess;
   });
@@ -1202,6 +1832,44 @@ cudaError_t launch_dx_head(const void* dpre, const void* w, void* dx, int B, int
   kernel<<<grid, kThreads, 0, s>>>(static_cast<const T*>(dpre), static_cast<const T*>(w),
                                    static_cast<T*>(dx), H, W, Cin, tiles_h, tiles_w);
   return cudaGetLastError();
+}
+
+// The fold's destinations for a shape: where the padded rows and columns
+// land, and the segments (each row the border lands on without the
+// columns, each such column without the rows, each corner; across the
+// batch) in tiles of `tile`. Returns the tiles.
+int fold_setup(FoldArgs& a, int B, int H, int W, int Cin, int Cout, int border, int tile) {
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.Cin = Cin;
+  a.Cout = Cout;
+  a.tile = tile;
+  a.top = src_index(-1, H, border);
+  a.bot = src_index(H, H, border);
+  a.left = src_index(-1, W, border);
+  a.right = src_index(W, W, border);
+  a.rows[0] = std::min(a.top, a.bot);
+  a.rows[1] = std::max(a.top, a.bot);
+  a.nr = a.top == a.bot ? 1 : 2;
+  a.cols[0] = std::min(a.left, a.right);
+  a.cols[1] = std::max(a.left, a.right);
+  a.nc = a.left == a.right ? 1 : 2;
+  int tiles = 0;
+  auto add = [&](int kind, int y, int x, int count) {
+    if (count <= 0) return;
+    a.seg_kind[a.nseg] = kind;
+    a.seg_y[a.nseg] = y;
+    a.seg_x[a.nseg] = x;
+    a.seg_tile[a.nseg++] = tiles;
+    tiles += (count + tile - 1) / tile;
+  };
+  for (int i = 0; i < a.nr; ++i) add(0, a.rows[i], 0, B * (W - a.nc));
+  for (int j = 0; j < a.nc; ++j) add(1, 0, a.cols[j], B * (H - a.nr));
+  for (int i = 0; i < a.nr; ++i)
+    for (int j = 0; j < a.nc; ++j) add(2, a.rows[i], a.cols[j], B);
+  a.seg_tile[a.nseg] = tiles;
+  return tiles;
 }
 
 template <typename OutT>
@@ -1260,22 +1928,17 @@ extern "C" int sde_conv3x3_bwd_slab(const void* w, void* slab, int Cin, int Cout
   return static_cast<int>(cudaGetLastError());
 }
 
-// The slabs of w' from a bf16 w (Cout, Cin, 3, 3), in one launch: tc (or
-// null), the tensor-core forward's bf16 slab of w', (9, round_up(Cout, 16),
-// round_up(Cin, 8)); fold (or null), the fold's fp32 slab, (9,
-// round_up(Cout, 8), round_up(Cin, 4)).
-extern "C" int sde_conv3x3_bwd_slab_bf16(const void* w, void* tc, void* fold, int Cin, int Cout,
-                                         int device, void* stream) {
+// The tensor-core slab of w' from a bf16 w (Cout, Cin, 3, 3): (9,
+// round_up(Cout, 16), round_up(Cin, 8)) bf16, conv3x3_dx_slab_bf16_kernel's.
+extern "C" int sde_conv3x3_bwd_slab_bf16(const void* w, void* tc, int Cin, int Cout, int device,
+                                         void* stream) {
   cudaError_t err = sde::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (Cin <= 0 || Cout <= 0 || (tc == nullptr && fold == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long n = (tc ? 9LL * sde::round_to(Cout, 16) * sde::round_to(Cin, 8) : 0) +
-                      (fold ? 9LL * sde::round_to(Cout, 8) * sde::round_to(Cin, 4) : 0);
+  if (Cin <= 0 || Cout <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = 9LL * sde::round_to(Cout, 16) * sde::round_to(Cin, 8);
   sde::conv3x3_dx_slab_bf16_kernel<<<sde::grid_for(n), sde::kThreads, 0,
                                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(w), static_cast<uint16_t*>(tc), static_cast<float*>(fold),
-      Cin, Cout);
+      static_cast<const uint16_t*>(w), static_cast<uint16_t*>(tc), Cin, Cout);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1296,75 +1959,73 @@ extern "C" int sde_conv3x3_bwd_dx_head(const void* dpre, const void* w, void* dx
 }
 
 // Adds the border's gradient to dx (B, H, W, Cin), which holds the interior:
-// from dpre (B, H, W, Cout) and the fp32 slab of sde_conv3x3_bwd_slab (or
-// sde_conv3x3_bwd_slab_bf16's fold slab); dpre and dx in dtype (0 fp32, 1
-// bf16: the sum in fp32, one rounding). border: 0 edge, 1 reflect (2, zero,
-// has none: nothing is launched).
+// from dpre (B, H, W, Cout) and the fp32 slab of sde_conv3x3_bwd_slab; dpre
+// and dx fp32 (dtype 0; bf16 takes sde_conv3x3_bwd_fold_bf16). border: 0
+// edge, 1 reflect (2, zero, has none: nothing is launched).
 extern "C" int sde_conv3x3_bwd_fold(const void* dpre, const void* slab, void* dx, int B, int H,
                                     int W, int Cin, int Cout, int border, int dtype, int device,
                                     void* stream) {
   cudaError_t err = sde::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (!sde::shape_ok(B, H, W, Cin, Cout) || (dtype != sde::kFloat32 && dtype != sde::kBFloat16))
+  if (!sde::shape_ok(B, H, W, Cin, Cout) || dtype != sde::kFloat32)
     return static_cast<int>(cudaErrorInvalidValue);
   if (border == 2) return static_cast<int>(cudaSuccess);
   sde::FoldArgs a{};
   a.dpre = dpre;
   a.slab = static_cast<const float*>(slab);
   a.dx = dx;
-  a.B = B;
-  a.H = H;
-  a.W = W;
-  a.Cin = Cin;
-  a.Cout = Cout;
   a.kp = sde::round_to(Cout, 8);
   a.np = sde::round_to(Cin, 4);
-  a.top = sde::src_index(-1, H, border);
-  a.bot = sde::src_index(H, H, border);
-  a.left = sde::src_index(-1, W, border);
-  a.right = sde::src_index(W, W, border);
-  a.rows[0] = std::min(a.top, a.bot);
-  a.rows[1] = std::max(a.top, a.bot);
-  a.nr = a.top == a.bot ? 1 : 2;
-  a.cols[0] = std::min(a.left, a.right);
-  a.cols[1] = std::max(a.left, a.right);
-  a.nc = a.left == a.right ? 1 : 2;
-  int tiles = 0;
-  auto add = [&](int kind, int y, int x, int count) {
-    if (count <= 0) return;
-    a.seg_kind[a.nseg] = kind;
-    a.seg_y[a.nseg] = y;
-    a.seg_x[a.nseg] = x;
-    a.seg_tile[a.nseg++] = tiles;
-    tiles += (count + sde::kFoldP - 1) / sde::kFoldP;
-  };
-  for (int i = 0; i < a.nr; ++i) add(0, a.rows[i], 0, B * (W - a.nc));
-  for (int j = 0; j < a.nc; ++j) add(1, 0, a.cols[j], B * (H - a.nr));
-  for (int i = 0; i < a.nr; ++i)
-    for (int j = 0; j < a.nc; ++j) add(2, a.rows[i], a.cols[j], B);
-  a.seg_tile[a.nseg] = tiles;
+  const int tiles = sde::fold_setup(a, B, H, W, Cin, Cout, border, sde::kFoldP);
   const dim3 grid(tiles, (Cin + sde::kFoldN - 1) / sde::kFoldN);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == sde::kFloat32)
-    sde::conv3x3_dx_fold_kernel<float><<<grid, sde::kThreads, 0, s>>>(a);
-  else
-    sde::conv3x3_dx_fold_kernel<__nv_bfloat16><<<grid, sde::kThreads, 0, s>>>(a);
+  sde::conv3x3_dx_fold_kernel<<<grid, sde::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 border fold on the tensor cores: adds the border's gradient to
+// dx (B, H, W, Cin) bf16, which holds the rounded interior, in fp32, and
+// rounds again; from dpre (B, H, W, Cout) bf16 and the tensor-core slab of
+// w' of sde_conv3x3_bwd_slab_bf16 (9, round_up(Cout, 16), round_up(Cin,
+// 8)). border: 0 edge, 1 reflect (2, zero, has none: nothing is launched).
+extern "C" int sde_conv3x3_bwd_fold_bf16(const void* dpre, const void* slab, void* dx, int B,
+                                         int H, int W, int Cin, int Cout, int border, int device,
+                                         void* stream) {
+  cudaError_t err = sde::use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!sde::shape_ok(B, H, W, Cin, Cout)) return static_cast<int>(cudaErrorInvalidValue);
+  if (border == 2) return static_cast<int>(cudaSuccess);
+  sde::FoldArgs a{};
+  a.dpre = dpre;
+  a.dx = dx;
+  const int tiles = sde::fold_setup(a, B, H, W, Cin, Cout, border, sde::kFoldTcP);
+  const dim3 grid(tiles, (Cin + sde::kFoldTcN - 1) / sde::kFoldTcN);
+  const int vec_a = Cout % 2 == 0 && sde::aligned_to(dpre, 4);
+  sde::conv3x3_dx_fold_tc_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const uint16_t*>(slab), (Cout + 15) / 16, (Cin + 7) / 8, vec_a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // How sde_conv3x3_bwd_dw runs this shape in dtype (0 fp32: the CUDA-core
-// kernel; 1 bf16: the tensor-core kernel) on `device`: plan[0] the slices
+// kernel; 1 bf16: the tensor-core kernels) on `device`: plan[0] the slices
 // of its strips, plan[1] the fp32 workspace it needs (elements), plan[2]
-// the strips a slice.
+// the strips a slice, plan[3] the kernel (0 conv3x3_dw_kernel, 1
+// conv3x3_dw_tc_kernel, 2 conv3x3_dw_wgmma_kernel, 3
+// conv3x3_dw_head_kernel).
 extern "C" int sde_conv3x3_bwd_plan(int B, int H, int W, int Cin, int Cout, int dtype,
                                     int device, long long* plan) {
   cudaError_t err = sde::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!sde::shape_ok(B, H, W, Cin, Cout)) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == sde::kFloat32)
+  if (dtype == sde::kFloat32) {
+    plan[3] = 0;
     return static_cast<int>(sde::dw_plan(B, H, W, Cin, Cout, device, plan));
-  if (dtype == sde::kBFloat16)
-    return static_cast<int>(sde::dw_tc_plan(B, H, W, Cin, Cout, device, plan));
+  }
+  if (dtype == sde::kBFloat16) {
+    plan[3] = sde::dw_bf16_route(Cin, Cout);
+    return static_cast<int>(plan[3] == 2   ? sde::dw_wgmma_plan(B, H, W, Cin, Cout, device, plan)
+                            : plan[3] == 3 ? sde::dw_head_plan(B, H, W, Cin, device, plan)
+                                           : sde::dw_tc_plan(B, H, W, Cin, Cout, device, plan));
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1382,9 +2043,12 @@ extern "C" int sde_conv3x3_bwd_dw(const void* dpre, const void* x, void* dw, voi
   if (!sde::shape_ok(B, H, W, Cin, Cout) || (dtype != sde::kFloat32 && dtype != sde::kBFloat16))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool f32 = dtype == sde::kFloat32;
+  const int route = f32 ? 0 : sde::dw_bf16_route(Cin, Cout);
   long long plan[3];
-  err = f32 ? sde::dw_plan(B, H, W, Cin, Cout, device, plan)
-            : sde::dw_tc_plan(B, H, W, Cin, Cout, device, plan);
+  err = route == 0   ? sde::dw_plan(B, H, W, Cin, Cout, device, plan)
+        : route == 1 ? sde::dw_tc_plan(B, H, W, Cin, Cout, device, plan)
+        : route == 2 ? sde::dw_wgmma_plan(B, H, W, Cin, Cout, device, plan)
+                     : sde::dw_head_plan(B, H, W, Cin, device, plan);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (ws == nullptr || ws_elems < plan[1] || plan[0] > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1413,6 +2077,54 @@ extern "C" int sde_conv3x3_bwd_dw(const void* dpre, const void* x, void* dw, voi
       a.vec_x = Cin % 4 == 0 && sde::aligned16(x);
       const dim3 grid(((Cout + Cfg::BM - 1) / Cfg::BM) * a.tiles_n, splits);
       sde::conv3x3_dw_kernel<Cfg><<<grid, Cfg::THREADS, Cfg::SMEM, s>>>(a);
+      return cudaGetLastError();
+    });
+  } else if (route == 3) {
+    err = sde::with_dw_head_cfg(Cin, [&](auto cfg) {
+      using Cfg = decltype(cfg);
+      sde::TArgs a{};
+      a.dpre = static_cast<const uint16_t*>(dpre);
+      a.x = static_cast<const uint16_t*>(x);
+      a.ws = static_cast<float*>(ws);
+      a.B = B;
+      a.H = H;
+      a.W = W;
+      a.Cin = Cin;
+      a.Cout = 1;
+      a.border = border;
+      a.strips_h = (H + sde::kHwTH - 1) / sde::kHwTH;
+      a.strips_w = (W + Cfg::TW - 1) / Cfg::TW;
+      a.strips = (long long)B * a.strips_h * a.strips_w;
+      a.per_split = static_cast<int>(plan[2]);
+      a.N = 9 * Cin + 1;
+      a.vec_x = Cin % 8 == 0 && sde::aligned16(x);
+      const dim3 grid((Cin + Cfg::C - 1) / Cfg::C, splits);
+      sde::conv3x3_dw_head_kernel<Cfg><<<grid, sde::kHwThreads, Cfg::SMEM, s>>>(a);
+      return cudaGetLastError();
+    });
+  } else if (route == 2) {
+    err = sde::with_dw_wgmma_cfg(Cin, Cout, [&](auto cfg) {
+      using Cfg = decltype(cfg);
+      sde::TArgs a{};
+      a.dpre = static_cast<const uint16_t*>(dpre);
+      a.x = static_cast<const uint16_t*>(x);
+      a.ws = static_cast<float*>(ws);
+      a.B = B;
+      a.H = H;
+      a.W = W;
+      a.Cin = Cin;
+      a.Cout = Cout;
+      a.border = border;
+      a.strips_h = (H + sde::kWgTH - 1) / sde::kWgTH;
+      a.strips_w = (W + sde::kWgTW - 1) / sde::kWgTW;
+      a.strips = (long long)B * a.strips_h * a.strips_w;
+      a.per_split = static_cast<int>(plan[2]);
+      a.tiles_n = (Cin + Cfg::BN - 1) / Cfg::BN;
+      a.N = 9 * Cin + 1;
+      a.vec_d = Cout % 8 == 0 && sde::aligned16(dpre);
+      a.vec_x = Cin % 8 == 0 && sde::aligned16(x);
+      const dim3 grid(((Cout + sde::kWgBM - 1) / sde::kWgBM) * a.tiles_n, splits);
+      sde::conv3x3_dw_wgmma_kernel<Cfg><<<grid, sde::kWgThreads, Cfg::SMEM, s>>>(a);
       return cudaGetLastError();
     });
   } else {

@@ -13,13 +13,17 @@ launch raises. The wrappers that launch kernels (``conv_block``,
 ``upsample_concat``, ``correlation``, ``correlation_gram``,
 ``soft_argmin``, ``fused_tail``, ``winograd``, and the backward kernels
 ``conv3x3_dpre``, ``conv3x3_dx_slab``, ``conv3x3_dx``,
-``conv3x3_dx_fold``, ``conv3x3_dw``, their bf16 ``conv3x3_dx_bf16`` and
-``conv3x3_dw_bf16``, ``correlation_bwd`` (fp32),
+``conv3x3_dx_fold``, ``conv3x3_dw``, their bf16 ``conv3x3_dx_fold_bf16``,
+``conv3x3_dx_bf16`` (the
+``wgmma`` interior; the heads' ``conv3x3_dx_bf16_head``, Cin = 1
+``conv3x3_dx_bf16_cin1``) and ``conv3x3_dw_bf16`` (the ``wgmma`` kernel;
+``conv3x3_dw_bf16_mma`` the ``mma.sync`` one, ``conv3x3_dw_bf16_head`` the
+heads'), ``correlation_bwd`` (fp32),
 ``correlation_gram_bwd`` (bf16, ``sde_correlation_gram_bwd``),
 ``soft_argmin_bwd``, ``upsample_concat_bwd`` and
 ``upsample_concat_bwd_bf16``) add one to
 :data:`LAUNCHES` per launch (``conv3x3_dw`` one a call, for its two
-launches: the partial sums and their reduce; ``conv3x3_dw_bf16`` the
+launches: the partial sums and their reduce; its bf16 kernels the
 same), so a run can show that its
 main path went through them.
 
@@ -86,13 +90,19 @@ _SIGNATURES = {
     "sde_conv3x3_bwd_dpre": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
     # w, slab, Cin, Cout, device, stream
     "sde_conv3x3_bwd_slab": (_P, _P, _I, _I, _I, _P),
-    # w, tc slab, fold slab, Cin, Cout, device, stream
-    "sde_conv3x3_bwd_slab_bf16": (_P, _P, _P, _I, _I, _I, _P),
+    # w, tensor-core slab, Cin, Cout, device, stream
+    "sde_conv3x3_bwd_slab_bf16": (_P, _P, _I, _I, _I, _P),
     # dpre, w, dx, B, H, W, Cin, dtype, device, stream
     "sde_conv3x3_bwd_dx_head": (_P,) * 3 + (_I,) * 6 + (_P,),
     # dpre, slab, dx, B, H, W, Cin, Cout, border, dtype, device, stream
     "sde_conv3x3_bwd_fold": (_P,) * 3 + (_I,) * 8 + (_P,),
-    # B, H, W, Cin, Cout, dtype, device, plan (3 long long)
+    # dpre, slab, dx, B, H, W, Cin, Cout, device, stream (bf16)
+    "sde_conv3x3_bwd_dx_bf16": (_P,) * 3 + (_I,) * 6 + (_P,),
+    # dpre, tensor-core slab, dx, B, H, W, Cin, Cout, border, device, stream
+    "sde_conv3x3_bwd_fold_bf16": (_P,) * 3 + (_I,) * 7 + (_P,),
+    # Cin, Cout, plan (3 int)
+    "sde_conv3x3_bwd_dx_plan": (_I, _I, ctypes.POINTER(_I)),
+    # B, H, W, Cin, Cout, dtype, device, plan (4 long long)
     "sde_conv3x3_bwd_plan": (_I,) * 7 + (ctypes.POINTER(_L),),
     # dpre, x, dw, db, workspace, ws_elems, B, H, W, Cin, Cout, border, dtype,
     # device, stream

@@ -22,13 +22,16 @@ from the forward's output, into a scratch both gradients read (bf16:
 rounded once); :func:`conv3x3_dx` runs the input's gradient as the
 zero-bordered conv of dpre with the flipped, transposed weight (fp32: the
 fp32 forward kernel on the slab :func:`arrange_dx_slab` makes each call;
-bf16: the ``wgmma`` forward kernel on :func:`arrange_dx_slab_bf16`'s slab;
-the heads, Cout = 1, on a kernel of their own) and then folds the border's
-gradient back onto the rows and columns it maps to (bf16: added in fp32 and
-rounded again); :func:`conv3x3_dw` sums the weight's and the bias's over
-strips of pixels, each block staging the input's halo once for all nine
-taps (fp32 on the CUDA cores, bf16 on ``mma.sync`` tensor cores), split
-over the pixels and added in a fixed order. They
+bf16: ``conv3x3_dx_wgmma_kernel`` of ``csrc/conv3x3_dx_wgmma.cu`` on
+:func:`arrange_dx_slab_bf16`'s slab, with the tiling :func:`dx_plan`
+gives; the heads, Cout = 1, on a kernel of their own) and then folds the
+border's gradient back onto the rows and columns it maps to (bf16: on the
+tensor cores, added in fp32 and rounded again); :func:`conv3x3_dw` sums the
+weight's and the bias's over strips of pixels, each block staging the
+input's halo once for all nine taps (fp32 on the CUDA cores; bf16 on
+``wgmma`` above 16 output channels, on ``mma.sync`` at 2-16 and, for the
+heads, on the CUDA cores: :func:`dw_route`), split over the pixels and
+added in a fixed order. They
 replace the backward of the TPU kernel's custom VJP
 (``scenedepthestimation_tpu/ops/pallas/conv_block.py::_fused_bwd``, XLA's
 VJP of ``conv3x3_xla``) and of the JAX ``DispHead``'s conv and sigmoid.
@@ -464,36 +467,27 @@ def arrange_dx_slab(weight: torch.Tensor) -> torch.Tensor:
     return slab
 
 
-def arrange_dx_slab_bf16_plain(weight: torch.Tensor, tc: bool = True,
-                               fold: bool = True) -> tuple:
-    """The slabs a bf16 dx reads, from a bf16 weight (Cout, Cin, 3, 3):
-    (the tensor-core forward's slab of :func:`flip_weight` of it,
-    :func:`arrange_slab_plain`'s core-matrix order, shape
-    ``slab_shape(Cout, Cin, bf16)``; the fold's fp32 K-major slab,
-    :func:`arrange_dx_slab_plain` in fp32), each None where not asked for."""
-    return (arrange_slab_plain(flip_weight(weight).contiguous()) if tc else None,
-            arrange_dx_slab_plain(weight).float() if fold else None)
+def arrange_dx_slab_bf16_plain(weight: torch.Tensor) -> torch.Tensor:
+    """The slab a bf16 dx reads (the interior's ``wgmma`` and the fold's
+    ``mma.sync``), from a bf16 weight (Cout, Cin, 3, 3): the tensor-core
+    forward's slab of :func:`flip_weight` of it, :func:`arrange_slab_plain`'s
+    core-matrix order, shape ``slab_shape(Cout, Cin, bf16)``."""
+    return arrange_slab_plain(flip_weight(weight).contiguous())
 
 
-def arrange_dx_slab_bf16(weight: torch.Tensor, tc: bool = True, fold: bool = True) -> tuple:
-    """:func:`arrange_dx_slab_bf16_plain` of a bf16 CUDA weight: both slabs
-    in one launch of the bf16 slab kernel (none when neither is asked for);
-    the plain version for a CPU weight."""
-    if weight.device.type == "cpu" or not (tc or fold):
-        return arrange_dx_slab_bf16_plain(weight, tc, fold)
+def arrange_dx_slab_bf16(weight: torch.Tensor) -> torch.Tensor:
+    """:func:`arrange_dx_slab_bf16_plain` of a bf16 CUDA weight in one launch
+    of the bf16 slab kernel; the plain version for a CPU weight."""
+    if weight.device.type == "cpu":
+        return arrange_dx_slab_bf16_plain(weight)
     dev = _check_bwd("conv3x3_dx_slab", (torch.bfloat16,), weight=weight)
     cout, cin = weight.shape[:2]
-    tc_slab = (torch.empty(slab_shape(cout, cin, torch.bfloat16), dtype=torch.bfloat16,
-                           device=dev) if tc else None)
-    fold_slab = (torch.empty((9,) + slab_shape(cout, cin, torch.float32)[1:],
-                             dtype=torch.float32, device=dev) if fold else None)
-    err = _build.lib().sde_conv3x3_bwd_slab_bf16(
-        weight.data_ptr(), None if tc_slab is None else tc_slab.data_ptr(),
-        None if fold_slab is None else fold_slab.data_ptr(), cin, cout, dev.index,
-        _build.stream_of(weight))
+    slab = torch.empty(slab_shape(cout, cin, torch.bfloat16), dtype=torch.bfloat16, device=dev)
+    err = _build.lib().sde_conv3x3_bwd_slab_bf16(weight.data_ptr(), slab.data_ptr(), cin, cout,
+                                                 dev.index, _build.stream_of(weight))
     _build.check(err, "conv3x3_dx_slab")
     _build.LAUNCHES["conv3x3_dx_slab"] += 1
-    return tc_slab, fold_slab
+    return slab
 
 
 def conv3x3_dx_fold_plain(dpre: torch.Tensor, weight: torch.Tensor,
@@ -534,14 +528,66 @@ def conv3x3_dx_plain(dpre: torch.Tensor, weight: torch.Tensor,
     return (interior.float() + conv3x3_dx_fold_plain(dpre, weight, border)).to(torch.bfloat16)
 
 
+# The bf16 interior kernel (csrc/conv3x3_dx_wgmma.cu): its pixel tile's
+# rows and columns by the number of warpgroups (each an 8 x 8 quadrant, an
+# m64 tile: w' resident, 2 warpgroups and two blocks an SM; streamed, 4 and
+# one), the dpre channels of a step, its stages, and the shared memory a
+# block may take by the number of warpgroups.
+DX_TILES = {2: (8, 16), 4: (16, 16)}
+DX_STEP = 16
+DX_STAGES = 4
+_DX_SMEM = {2: 115712, 4: 232448}
+
+
+def dx_halo_pixels(wgs: int) -> int:
+    """The interior kernel's halo pixels a channel group: the tile's rows and
+    columns plus 2 each, rounded up to one past a multiple of 8."""
+    rows, cols = DX_TILES[wgs]
+    return ((rows + 2) * (cols + 2) + 7) // 8 * 8 + 1
+
+
+def _dx_bytes(tn: int, kc: int, resident: bool) -> int:
+    """Shared memory of the interior kernel: w' (resident: 9 x kc steps x tn
+    x 16; streamed: a step's 9 x tn x 16 a stage) and a halo of two channel
+    groups a stage."""
+    halo = 2 * dx_halo_pixels(2 if resident else 4) * 8
+    b = 9 * tn * DX_STEP
+    return 2 * (kc * b + DX_STAGES * halo if resident else DX_STAGES * (b + halo))
+
+
+@functools.lru_cache(maxsize=None)
+def dx_plan(cin: int, cout: int) -> tuple:
+    """(N tile, w' resident, shared bytes) of the bf16 interior kernel
+    ``conv3x3_dx_wgmma_kernel`` for dx's Cin output channels and dpre's Cout
+    (K = 9 Cout): the tile of 16, 32, 64 or 128 channels that covers Cin
+    (128 above 64), halved once, where w' for the whole of K fits beside
+    the pipeline of a block of two warpgroups (two blocks an SM); where it
+    fits at neither, w' streams with the halo through blocks of four
+    warpgroups (one an SM) at 64 channels (Cin <= 64) or 128.
+    csrc/conv3x3_dx_wgmma.cu's dx_wgmma_plan takes the same steps."""
+    kc = -(-cout // DX_STEP)
+    tn = 16 if cin <= 16 else 32 if cin <= 32 else 64 if cin <= 64 else 128
+    for t in (tn, tn // 2):
+        if t >= 16 and _dx_bytes(t, kc, True) <= _DX_SMEM[2]:
+            return t, True, _dx_bytes(t, kc, True)
+    t = 64 if tn <= 64 else 128
+    return t, False, _dx_bytes(t, kc, False)
+
+
 def conv3x3_dx(dpre: torch.Tensor, weight: torch.Tensor, border: str = "reflect") -> torch.Tensor:
     """The input's gradient from dpre (B, H, W, Cout) and the forward's weight
     (Cout, Cin, 3, 3), both fp32 or both bf16, in their dtype. On CUDA: the
-    slab of w' (one launch, when read; bf16: the tensor-core slab and the
-    fold's fp32 slab in one), the interior (fp32: ``conv3x3_f32_kernel`` on
-    dpre with that slab; bf16: ``conv3x3_tc_kernel``; Cin = 1 the forward's
+    slab of w' (one launch, when read; bf16: the tensor-core slab, which the
+    interior and the fold both read), the interior (fp32: ``conv3x3_f32_kernel`` on
+    dpre with that slab; bf16: ``conv3x3_dx_wgmma_kernel``, persistent blocks
+    on ``wgmma`` with the tile :func:`dx_plan` gives; Cin = 1 the forward's
     head kernel on w'; Cout = 1 the heads' dx kernel), then the fold under
-    the reflect and edge borders. :func:`conv3x3_dx_plain` on the CPU."""
+    the reflect and edge borders (fp32 on the CUDA cores, bf16 on
+    ``mma.sync`` from the tensor-core slab of w'). :func:`conv3x3_dx_plain`
+    on the CPU. Launches count as ``conv3x3_dx`` (fp32), ``conv3x3_dx_bf16``
+    (the bf16 interior kernel), ``conv3x3_dx_bf16_head`` (Cout = 1) and
+    ``conv3x3_dx_bf16_cin1`` (Cin = 1); the folds as ``conv3x3_dx_fold`` and
+    ``conv3x3_dx_fold_bf16``."""
     if dpre.device.type == "cpu":
         return conv3x3_dx_plain(dpre, weight, border)
     dev = _check_bwd("conv3x3_dx", tuple(_DTYPES), dpre=dpre, weight=weight)
@@ -558,25 +604,38 @@ def conv3x3_dx(dpre: torch.Tensor, weight: torch.Tensor, border: str = "reflect"
     stream = _build.stream_of(dpre)
     bf16 = dpre.dtype == torch.bfloat16
     if bf16:
-        slab, fold_slab = arrange_dx_slab_bf16(weight, tc=min(cin, cout) > 1,
-                                               fold=border != "zero")
+        slab = arrange_dx_slab_bf16(weight) if border != "zero" or min(cin, cout) > 1 else None
     else:
         slab = arrange_dx_slab(weight) if border != "zero" or min(cin, cout) > 1 else None
-        fold_slab = slab
     if cout == 1:
         err = _build.lib().sde_conv3x3_bwd_dx_head(dpre.data_ptr(), weight.data_ptr(),
                                                    dx.data_ptr(), b, h, w, cin,
                                                    _DTYPES[dpre.dtype], dev.index, stream)
         _build.check(err, "conv3x3_dx")
+        route = "conv3x3_dx_bf16_head" if bf16 else "conv3x3_dx"
+    elif bf16 and cin > 1:
+        err = _build.lib().sde_conv3x3_bwd_dx_bf16(dpre.data_ptr(), slab.data_ptr(),
+                                                   dx.data_ptr(), b, h, w, cin, cout, dev.index,
+                                                   stream)
+        _build.check(err, "conv3x3_dx")
+        route = "conv3x3_dx_bf16"
     else:
-        # With Cin = 1 the forward's head kernel runs the interior; it reads
-        # the weight (1, Cout, 3, 3) itself, not a slab.
+        # fp32 runs the interior on the fp32 forward's kernel; with Cin = 1
+        # the forward's head kernel runs it, reading the weight (1, Cout, 3,
+        # 3) itself, not a slab.
         wt = flip_weight(weight).contiguous() if cin == 1 else weight
         zero = _kept(dev, stream, 5 if bf16 else 3, cin, dpre.dtype, zeros=True)[:cin]
         _launch(dpre, wt, slab if cin > 1 else None, zero, dx, "none", "zero")
-    _build.LAUNCHES["conv3x3_dx_bf16" if bf16 else "conv3x3_dx"] += 1
-    if border != "zero":
-        err = _build.lib().sde_conv3x3_bwd_fold(dpre.data_ptr(), fold_slab.data_ptr(),
+        route = "conv3x3_dx_bf16_cin1" if bf16 else "conv3x3_dx"
+    _build.LAUNCHES[route] += 1
+    if border != "zero" and bf16:
+        err = _build.lib().sde_conv3x3_bwd_fold_bf16(dpre.data_ptr(), slab.data_ptr(),
+                                                     dx.data_ptr(), b, h, w, cin, cout,
+                                                     BORDERS[border], dev.index, stream)
+        _build.check(err, "conv3x3_dx_fold")
+        _build.LAUNCHES["conv3x3_dx_fold_bf16"] += 1
+    elif border != "zero":
+        err = _build.lib().sde_conv3x3_bwd_fold(dpre.data_ptr(), slab.data_ptr(),
                                                 dx.data_ptr(), b, h, w, cin, cout,
                                                 BORDERS[border], _DTYPES[dpre.dtype], dev.index,
                                                 stream)
@@ -585,13 +644,32 @@ def conv3x3_dx(dpre: torch.Tensor, weight: torch.Tensor, border: str = "reflect"
     return dx
 
 
+# The dW kernels, by plan[3] of :func:`bwd_plan`, and the name their
+# launches count under.
+DW_KERNELS = ("conv3x3_dw", "conv3x3_dw_bf16_mma", "conv3x3_dw_bf16", "conv3x3_dw_bf16_head")
+
+
+def dw_route(cin: int, cout: int, dtype: torch.dtype) -> int:
+    """The dW kernel of a shape (an index into :data:`DW_KERNELS`): fp32 the
+    CUDA-core ``conv3x3_dw_kernel``; bf16 with Cout > 16
+    ``conv3x3_dw_wgmma_kernel`` (64 output channels a block on ``wgmma``),
+    the heads (Cout = 1) ``conv3x3_dw_head_kernel`` (CUDA cores, a channel
+    pair a thread sliding its 3 x 3 window along a strip row), 2-16 output
+    channels ``conv3x3_dw_tc_kernel`` (``mma.sync``: its 16-row tiles waste
+    no rows there). csrc/conv3x3_bwd.cu's dw_bf16_route takes the same
+    choice."""
+    if dtype == torch.float32:
+        return 0
+    return 2 if cout > 16 else 3 if cout == 1 else 1
+
+
 @functools.lru_cache(maxsize=None)
 def bwd_plan(b: int, h: int, w: int, cin: int, cout: int, dtype: torch.dtype,
              device_index: int) -> tuple:
-    """(slices, fp32 workspace elements, strips a slice) of the dW kernel for
-    ``dtype`` (fp32: the CUDA-core kernel; bf16: the tensor-core one) at
-    this shape on CUDA device ``device_index``, from sde_conv3x3_bwd_plan."""
-    plan = (ctypes.c_longlong * 3)()
+    """(slices, fp32 workspace elements, strips a slice, kernel) of the dW
+    kernel for ``dtype`` at this shape on CUDA device ``device_index``, from
+    sde_conv3x3_bwd_plan; the kernel as :func:`dw_route` gives it."""
+    plan = (ctypes.c_longlong * 4)()
     err = _build.lib().sde_conv3x3_bwd_plan(b, h, w, cin, cout, _DTYPES[dtype], device_index,
                                             plan)
     _build.check(err, "conv3x3 backward plan")
@@ -619,9 +697,11 @@ def conv3x3_dw_plain(dpre: torch.Tensor, x: torch.Tensor,
 def conv3x3_dw(dpre: torch.Tensor, x: torch.Tensor,
                border: str = "reflect") -> Tuple[torch.Tensor, torch.Tensor]:
     """(dweight, dbias) from dpre and the forward's input, both fp32 or both
-    bf16, in their dtype: on CUDA the dW kernel (fp32: CUDA cores; bf16:
-    the tensor cores, fp32 sums rounded once) and its reduce (the workspace
-    kept per device and stream), :func:`conv3x3_dw_plain` on the CPU."""
+    bf16, in their dtype: on CUDA the dW kernel :func:`dw_route` picks
+    (fp32: CUDA cores; bf16: the tensor cores, ``wgmma`` or ``mma.sync``,
+    or the heads' CUDA-core kernel; fp32 sums rounded once) and its reduce (the workspace kept per device
+    and stream), :func:`conv3x3_dw_plain` on the CPU. A call counts one
+    launch under the kernel's name in :data:`DW_KERNELS`."""
     if x.device.type == "cpu":
         return conv3x3_dw_plain(dpre, x, border)
     dev = _check_bwd("conv3x3_dw", tuple(_DTYPES), dpre=dpre, x=x)
@@ -637,13 +717,13 @@ def conv3x3_dw(dpre: torch.Tensor, x: torch.Tensor,
     if x.numel() == 0 or cout == 0:
         return dw.zero_(), db.zero_()
     stream = _build.stream_of(x)
-    _, ws_elems, _ = bwd_plan(b, h, w, cin, cout, x.dtype, dev.index)
+    _, ws_elems, _, route = bwd_plan(b, h, w, cin, cout, x.dtype, dev.index)
     ws = _kept(dev, stream, 0, ws_elems)
     err = _build.lib().sde_conv3x3_bwd_dw(
         dpre.data_ptr(), x.data_ptr(), dw.data_ptr(), db.data_ptr(), ws.data_ptr(), ws.numel(),
         b, h, w, cin, cout, BORDERS[border], _DTYPES[x.dtype], dev.index, stream)
     _build.check(err, "conv3x3_dw")
-    _build.LAUNCHES["conv3x3_dw_bf16" if x.dtype == torch.bfloat16 else "conv3x3_dw"] += 1
+    _build.LAUNCHES[DW_KERNELS[route]] += 1
     return dw, db
 
 
