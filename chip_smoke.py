@@ -17,7 +17,11 @@ Phases, one line each (more for the per-shape kernel checks):
      inputs smaller than one tile, which split their channels),
      upsample_concat at its 4 shapes, each against its plain version on
      the card, with both times (CUDA events, median of 30 runs, L2 warm as
-     in the decoder); at the fp32 shapes also the device time of a call
+     in the decoder), and exactly at widths off 16 bytes, B*H above the
+     grid's 65,535 rows, contiguous views one element off 16-byte
+     alignment, and a bf16 output above 2^31 elements on the 16-byte and
+     the one-element unit (compared in batch slices), each with the unit
+     its launch plan took; at the fp32 shapes also the device time of a call
      (CUDA events queued behind a spin kernel, so the launch from Python
      lies outside them; the card's own launch latency lies inside), the
      kernel time and launches (torch.profiler: one a call), cuDNN's conv
@@ -180,8 +184,11 @@ Phases, one line each (more for the per-shape kernel checks):
      against the same step on the card's plain path and against the CPU's,
      on the same weights and batch (losses and each tensor's gradient, at
      the tolerances TRAIN_GRAD_ATOL states; the kernel path also with cuDNN's
-     deterministic algorithms and with cuDNN off, against the CPU), with the
-     six kernels' launches
+     deterministic algorithms and with cuDNN off, against the CPU; the
+     supervised step's plain-path comparison runs each path DET_RUNS times
+     under deterministic settings, prints each path's run-to-run spread and
+     holds both at 0, no op warning, and the first runs to the atol), with
+     the six kernels' launches
      and the layout of the gradient each join's backward receives; the CLI's
      train in both modes for 10 steps on a synthetic KITTI 2015 tree at
      375x1242 and a resume from step_0000005_train (losses rtol 1e-4, cuDNN
@@ -383,11 +390,33 @@ largest magnitude, its device time (events queued behind a spin kernel)
 and kernel time by kernel (torch.profiler), RUNS calls each (default 10),
 and the sums over the 14, beside the card's name and power limit; one JSON
 line. Run a change and its parent in turns on one card.
+
+    python3 chip_smoke.py --measure-upcat [OLD_CU] [RUNS]
+
+holds the upsample_concat forward kernel of the package beside this script
+against an earlier version of it: OLD_CU (default
+build/old_upcat/upsample_concat.cu, a copy of an earlier
+csrc/upsample_concat.cu whose entry point takes x, skip, out, B, H, W, C1,
+C2, the element size, the device and the stream), compiled by nvcc into a
+library of its own and called behind a copy of the earlier wrapper's body
+(_old_upcat). At every join shape of the paths (UPCAT_MEASURE), on
+argument sets made from one seed that together exceed twice the L2, both
+kernels are held to the plain version bit for bit, then timed in turns
+(old, new, new, old) by call, device (events queued behind a spin kernel)
+and kernel time (torch.profiler), RUNS calls each (default 100), and the
+host's time a call of each wrapper (HOST_ROUNDS rounds of 50 calls issued
+back to back, the two taking turns), beside the bytes bound and, as the
+card's copy rate, a copy_ of a tensor the output's size; the sums by
+path; then config 1's b1 predict_mono (4 joins a frame) with the earlier
+kernel and wrapper swapped in and with the package's own, in turns of
+B1_FRAMES frames for B1_ROUNDS rounds, outputs equal bit for bit; the
+card's name and power limit; one JSON line.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import json
@@ -572,10 +601,17 @@ def _upcat_bytes(x, skip) -> int:
     return 5 * nbytes(x) + 2 * nbytes(skip)
 
 
-def _upcat_case(upcat, rng, shape, dtype):
+def _upcat_case(upcat, rng, shape, dtype, offset: int = 0):
+    """upsample_concat against its plain version on seeded inputs; with an
+    ``offset``, each input is a contiguous view that many elements into its
+    storage."""
     b, h, w, c1, c2 = shape
-    x = _rand(rng, (b, h, w, c1), 1.0, dtype)
-    skip = _rand(rng, (b, 2 * h, 2 * w, c2), 1.0, dtype)
+
+    def view(dims):
+        t = _rand(rng, (int(np.prod(dims)) + offset,), 1.0, dtype)
+        return t[offset:].view(dims)
+
+    x, skip = view((b, h, w, c1)), view((b, 2 * h, 2 * w, c2))
     got = upcat.upsample_concat(x, skip)
     ref = upcat.upsample_concat_plain(x, skip)
     torch.cuda.synchronize()
@@ -604,6 +640,17 @@ EXTRA_CONV = [
     ((2, 4, 4, 96, 256), "relu", "zero", None),
 ]
 EXTRA_UPCAT = [(2, 3, 5, 3, 5), (1, 4, 6, 8, 4), (2, 5, 3, 16, 24)]
+# upsample_concat's edge cases, each also with inputs one element into
+# their storage (off 16-byte alignment): a width off 16 bytes (a narrower
+# unit), C1 != C2 at odd W, the stereo aggregation's widths (whose
+# divisions are multiply-highs), B*H above the grid's 65,535 rows, a
+# pixel wider than one pass of a block, and a pixel of x wider than the
+# staging limit (read where needed).
+UPCAT_EDGE = [(2, 3, 7, 6, 10), (3, 4, 9, 24, 40), (2, 5, 7, 160, 128), (1100, 64, 2, 8, 8),
+              (2, 3, 5, 640, 512), (1, 2, 3, 9216, 8)]
+# A bf16 output above 2^31 elements (4.4 GB): the bench preset's widest join
+# at b208.
+UPCAT_LARGE = (208, 96, 288, 32, 64)
 
 STEREO_CONFIG = "stereo_256x512_b4"
 STEREO_B = 4
@@ -813,7 +860,52 @@ def phase_kernels(conv_block, upcat) -> dict:
             _, err = _upcat_case(upcat, rng, shape, dtype)
             print(f"[3 upsample_concat {dt} extra] {shape}: max|err| {err:.3g} (exact)")
             check(err == 0.0, f"upsample_concat {dt} {shape} is not exact")
+        for shape in UPCAT_EDGE:
+            for offset in (0, 1):
+                args, err = _upcat_case(upcat, rng, shape, dtype, offset)
+                ptrs = (t.data_ptr() for t in args)
+                plan = upcat.upsample_concat_plan(
+                    *shape, args[0].element_size(), upcat._alignment(*ptrs))
+                print(f"[3 upsample_concat {dt} edge] {shape}, storage offset {offset}: the "
+                      f"{plan.unit}-byte unit, {plan.wb}-pixel segments, x staged in "
+                      f"{plan.staged} bytes, max|err| {err:.3g} (exact)")
+                check(err == 0.0, f"upsample_concat {dt} {shape} offset {offset} is not exact")
+    for offset in (0, 1):
+        _upcat_large(upcat, UPCAT_LARGE, offset)
     return res
+
+
+def _upcat_large(upcat, shape, offset: int, slab: int = 16) -> None:
+    """upsample_concat on a bf16 output of more than 2^31 elements, its
+    inputs views ``offset`` elements into their storage (1: the
+    one-element unit), held to the plain version bit for bit in slices of
+    ``slab`` batch entries (the plain version of the whole would not fit
+    beside it)."""
+    b, h, w, c1, c2 = shape
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def view(*dims):
+        n = int(np.prod(dims))
+        t = torch.empty(n + offset, dtype=torch.bfloat16, device="cuda")
+        t[offset:].normal_(generator=gen)
+        return t[offset:].view(dims)
+
+    x, skip = view(b, h, w, c1), view(b, 2 * h, 2 * w, c2)
+    align = upcat._alignment(x.data_ptr(), skip.data_ptr())
+    plan = upcat.upsample_concat_plan(b, h, w, c1, c2, 2, align)
+    out = upcat.upsample_concat(x, skip)
+    torch.cuda.synchronize()
+    check(out.numel() > 2**31, f"{tuple(out.shape)} holds {out.numel()} elements")
+    same = all(torch.equal(out[i:i + slab], upcat.upsample_concat_plain(x[i:i + slab],
+                                                                        skip[i:i + slab]))
+               for i in range(0, b, slab))
+    print(f"[3 upsample_concat bf16 large] x {tuple(x.shape)} + skip {tuple(skip.shape)} -> "
+          f"{tuple(out.shape)}, {out.numel()} elements ({out.numel() * 2 // plan.unit} units of "
+          f"{plan.unit} bytes), storage offset {offset}: equal to the plain version bit "
+          f"for bit in slices of {slab}: {same}")
+    check(same, f"upsample_concat on {tuple(out.shape)} offset {offset} is not exact")
+    del x, skip, out
+    torch.cuda.empty_cache()
 
 
 def phase_conv_device(conv_block, r: dict) -> None:
@@ -3496,6 +3588,14 @@ UPCAT_BWD_EXTRA = [(2, 3, 5, 5, 3), (1, 1, 1, 4, 8), (2, 5, 3, 16, 24)]
 TRAIN_KERNEL_LOSS_RTOL = 1e-5
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_ATOL = {"supervised": (1e-6, 5e-4), "selfsup": (2e-4, 4e-3)}
+# Under cuDNN's default algorithms the supervised step's gradients differ
+# from a rerun of the same path by up to 7.53e-7 x max|g| (measured on an
+# NVIDIA H100 80GB HBM3 at 700 W), most of its plain-path atol; one run lay
+# 1.03e-6 x from the plain path. So that comparison runs both paths
+# DET_RUNS times under _deterministic(), checks that neither path moves
+# from one run to the next and that no op warned, and holds the first runs
+# to the atol.
+DET_RUNS = 3
 TRAIN_STEPS = 10
 RESUME_AT = TRAIN_STEPS // 2
 TRAIN_PAIRS = 8
@@ -3768,6 +3868,42 @@ def _train_batch(cfg, seed: int, gt: bool = True) -> dict:
     return batch
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN's deterministic algorithms with its autotuner off, and
+    PyTorch's deterministic algorithms (warn_only: an op without a
+    deterministic CUDA implementation warns and runs, and the context
+    yields the warnings caught); the settings come back afterwards. main()
+    names the cuBLAS workspace that deterministic GEMMs ask for."""
+    import warnings
+
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+
+
+def _spread_runs(grad_fn, runs: int = DET_RUNS) -> tuple:
+    """(first run's gradients, the runs' spread): ``runs`` calls of grad_fn()
+    -> {name: grad}; the spread is the worst distance of a later run from
+    the first, x max|g| of the tensor, with the tensor's name."""
+    first = grad_fn()
+    spread = max((_worst(grad_fn(), first)[0] for _ in range(runs - 1)), default=(0.0, ""))
+    return first, spread
+
+
+def _spread_text(spread: tuple) -> str:
+    return f"{spread[0]:.3g} x" + (f" ({spread[1]})" if spread[0] else "")
+
+
 class _KeepGrads:
     """An optimizer that leaves the parameters and keeps their gradients."""
 
@@ -3931,6 +4067,7 @@ def phase_training(sdt, _build, corr, sa, upcat) -> dict:
             _build, lambda: _grad_step(train, cfg, make_step, batch, "cuda"),
             (corr, "correlation"), (sa, "soft_argmin"), (upcat, "upsample_concat"))
         ref_loss, ref = _grad_step(train, cfg, make_step, batch, "cpu")
+        atol_plain, atol_cpu = TRAIN_GRAD_ATOL[mode]
 
         def rel(a, b):
             return sorted(((a[k] - v).abs().max().item() / max(v.abs().max().item(), 1e-30), k)
@@ -3940,6 +4077,23 @@ def phase_training(sdt, _build, corr, sa, upcat) -> dict:
             return ", ".join(f"{k} {e:.3g}" for e, k in r[:3])
 
         vs_plain, vs_cpu, plain_vs_cpu = rel(grads, plain), rel(grads, ref), rel(plain, ref)
+        det_text, det_ok = "", True
+        if mode == "supervised":
+            with _deterministic() as warned:
+                d_kernel, k_spread = _spread_runs(
+                    lambda: _grad_step(train, cfg, make_step, batch, "cuda")[1])
+                d_plain, p_spread = _spread_runs(lambda: on_plain_path(
+                    _build, lambda: _grad_step(train, cfg, make_step, batch, "cuda")[1],
+                    (corr, "correlation"), (sa, "soft_argmin"), (upcat, "upsample_concat")))
+            vs_plain = rel(d_kernel, d_plain)
+            ops = sorted({str(w.message).split(" does not have a deterministic")[0][:80]
+                          for w in warned if "deterministic" in str(w.message)})
+            det_ok = k_spread[0] == 0 and p_spread[0] == 0 and not ops
+            det_text = (f" [under deterministic settings, {DET_RUNS} runs a path: the kernel "
+                        f"path's own spread {_spread_text(k_spread)}, the plain path's "
+                        f"{_spread_text(p_spread)} (both must be 0); {len(warned)} warnings "
+                        f"caught, ops without a deterministic CUDA implementation: "
+                        f"{ops or 'none'}]")
         # Where the card departs from the CPU: the same kernel-path step with
         # cuDNN's deterministic algorithms, and with cuDNN off (PyTorch's own
         # CUDA convolutions, no FFT algorithms).
@@ -3952,14 +4106,14 @@ def phase_training(sdt, _build, corr, sa, upcat) -> dict:
                 alt[label] = rel(_grad_step(train, cfg, make_step, batch, "cuda")[1], ref)
             finally:
                 setattr(cudnn, attr, saved)
-        atol_plain, atol_cpu = TRAIN_GRAD_ATOL[mode]
         l_plain = abs(loss - plain_loss) / abs(plain_loss)
         l_cpu = abs(loss - ref_loss) / abs(ref_loss)
         print(f"[20 {mode} step] {STEREO_CONFIG} b{cfg.batch_size} {cfg.height}x{cfg.width} fp32 "
               f"refine={cfg.stereo.refine} aux_ce={cfg.stereo.aux_ce_weight}: loss {loss:.6f}; "
               f"against the card's plain path {plain_loss:.6f} (rel {l_plain:.3g}, rtol "
               f"{TRAIN_KERNEL_LOSS_RTOL:g}), worst gradients (x max|g| of the tensor) "
-              f"{top(vs_plain)} (atol {atol_plain:g} x); against the CPU {ref_loss:.6f} (rel "
+              f"{top(vs_plain)} (atol {atol_plain:g} x){det_text}; against the CPU "
+              f"{ref_loss:.6f} (rel "
               f"{l_cpu:.3g}, rtol {TRAIN_LOSS_RTOL:g}), worst gradients {top(vs_cpu)} (atol "
               f"{atol_cpu:g} x), the card's plain path against the CPU {top(plain_vs_cpu)}, "
               + ", ".join(f"the kernel path with {k} against the CPU {top(v)}"
@@ -3967,6 +4121,7 @@ def phase_training(sdt, _build, corr, sa, upcat) -> dict:
               + f"; launches a step {launches[mode]}")
         check(np.isfinite(loss) and l_plain <= TRAIN_KERNEL_LOSS_RTOL and l_cpu <= TRAIN_LOSS_RTOL,
               f"{mode} loss {loss} vs plain {plain_loss}, CPU {ref_loss}")
+        check(det_ok, f"{mode} step not deterministic under deterministic settings{det_text}")
         check(vs_plain[0][0] <= atol_plain,
               f"{mode} grad {vs_plain[0][1]} off the plain path by {vs_plain[0][0]:.3g} x max|g|")
         check(vs_cpu[0][0] <= atol_cpu,
@@ -6902,17 +7057,250 @@ def measure_conv_bwd(root: str, runs: int) -> int:
     return 0
 
 
+# The mono decoder's joins at mono_nyu_480x640_b8's 480x640: (level, H, W,
+# C1, C2) as UPCAT_SHAPES.
+NYU_UPCAT_SHAPES = [("level_4", 15, 20, 256, 256), ("level_3", 30, 40, 128, 128),
+                    ("level_2", 60, 80, 64, 64), ("level_1", 120, 160, 32, 64)]
+# Calls a time of --measure-upcat (by call, device and kernel time).
+UPCAT_RUNS = 100
+# --measure-upcat: (path, dtype, batch, joins) of every path that launches
+# the upsample_concat forward kernel.
+UPCAT_MEASURE = [
+    ("bench preset b128", torch.bfloat16, BENCH_B, BENCH_UPCAT_SHAPES),
+    ("bench preset temporal step b64", torch.bfloat16, 64, BENCH_UPCAT_SHAPES),
+    ("config 1 b1", torch.float32, 1, UPCAT_SHAPES),
+    ("config 1 train b12", torch.float32, MONO_B, UPCAT_SHAPES),
+    ("mono_eigen_eval b8", torch.float32, 8, UPCAT_SHAPES),
+    ("mono_nyu_480x640_b8", torch.float32, 8, NYU_UPCAT_SHAPES),
+    ("config 4 b4", torch.float32, STEREO_B, STEREO_UPCAT_SHAPES),
+    ("config 5 b16", torch.bfloat16, BF16_B, BF16_UPCAT_SHAPES),
+]
+OLD_UPCAT_CU = os.path.join("build", "old_upcat", "upsample_concat.cu")
+# --measure-upcat's host time: rounds of 50 calls a wrapper, the two in
+# turns; config 1's b1 frames: rounds of this many frames a wrapper.
+HOST_ROUNDS = 40
+B1_ROUNDS = 10
+B1_FRAMES = 50
+
+def _old_upcat(_build, upcat, cu: str):
+    """upsample_concat(x, skip) on the forward kernel of an earlier
+    csrc/upsample_concat.cu, compiled by nvcc into a library beside it,
+    behind a copy of the earlier wrapper's body (its checks, its arguments
+    and its count, under a name of its own), so that its host time
+    compares with the wrapper's."""
+    lib_path = os.path.join(os.path.dirname(os.path.abspath(cu)), "libold_upcat.so")
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR, "-shared",
+                    "-o", lib_path, cu], check=True, capture_output=True, text=True, timeout=600)
+    lib = ctypes.CDLL(lib_path)
+    fn = lib.sde_upsample_concat
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(x, skip):
+        if _build.tracing or _build.needs_grad(x, skip):
+            raise ValueError("the earlier kernel is timed on plain calls")
+        if x.device.type == "cpu":
+            return upcat.upsample_concat_plain(x, skip)
+        if x.device.type != "cuda":
+            raise ValueError(f"upsample_concat runs on cpu or cuda, not {x.device}")
+        upcat._check(x, skip)
+        if skip.device != x.device:
+            raise ValueError(f"skip is on {skip.device}, x on {x.device}")
+        if not (x.is_contiguous() and skip.is_contiguous()):
+            raise ValueError("upsample_concat kernel needs contiguous inputs")
+        esize = x.element_size()
+        if esize not in (2, 4):
+            raise TypeError(f"upsample_concat kernel takes 2- or 4-byte elements, not {x.dtype}")
+        b, h, w, c1 = x.shape
+        c2 = skip.shape[-1]
+        out = torch.empty((b, 2 * h, 2 * w, c1 + c2), dtype=x.dtype, device=x.device)
+        if out.numel() == 0:
+            return out
+        err = fn(x.data_ptr(), skip.data_ptr(), out.data_ptr(), b, h, w, c1, c2, esize,
+                 x.device.index, _build.stream_of(x))
+        _build.check(err, "the earlier upsample_concat kernel")
+        _build.LAUNCHES["upsample_concat_old"] += 1
+        return out
+
+    return call
+
+
+def _host_us(calls: dict, rounds: int = HOST_ROUNDS, n: int = 50) -> dict:
+    """The host's microseconds a call of each of ``calls``' functions:
+    ``rounds`` rounds in which each issues n calls back to back on the host
+    clock (fewer than the launch queue holds, so none waits for the card),
+    each after a synchronize, in an order that reverses every round; the
+    median over the rounds of each, and of each one's difference from the
+    first in the same round."""
+    names = list(calls)
+    times = {k: [] for k in names}
+    for r in range(rounds):
+        for k in names if r % 2 == 0 else names[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                calls[k]()
+            times[k].append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    first = np.asarray(times[names[0]])
+    return {**{k: float(np.median(v)) for k, v in times.items()},
+            **{f"{k}_minus_{names[0]}": float(np.median(np.asarray(times[k]) - first))
+               for k in names[1:]}}
+
+
+def _b1_turns(_build, upcat, old) -> dict:
+    """Config 1's b1 predict_mono with the upsample_concat wrapper swapped
+    for ``old`` and with the package's own, in turns of B1_FRAMES frames
+    (order reversed every round) for B1_ROUNDS rounds: the median and p90
+    ms a frame of each, the median over the rounds of new - old, and
+    whether the two give the same depth bit for bit."""
+    import scenedepthestimation_tpu_torch as sdt
+
+    frame = np.random.default_rng(0).integers(0, 256, SRC_HW + (3,), dtype=np.uint8)
+    p = sdt.load_weights(None, CONFIG, seed=0, device="cuda")
+    own = upcat.upsample_concat
+    wrappers = {"old": old, "new": own}
+    key = {"old": "upsample_concat_old", "new": "upsample_concat"}
+    frames = {"old": [], "new": []}
+    rounds = {"old": [], "new": []}
+    depth = {}
+    try:
+        for r in range(B1_ROUNDS):
+            for who in ("old", "new") if r % 2 == 0 else ("new", "old"):
+                upcat.upsample_concat = wrappers[who]
+                _build.LAUNCHES.clear()
+                depth[who] = sdt.predict_mono(p, frame)["depth"]
+                lat = _frame_ms(sdt, p, frame, B1_FRAMES)
+                joins = _build.LAUNCHES[key[who]]
+                check(joins == 4 * (B1_FRAMES + 2) and not _build.LAUNCHES[key[
+                    "new" if who == "old" else "old"]],
+                      f"b1 turn {who}: launches {dict(_build.LAUNCHES)}")
+                frames[who] += lat
+                rounds[who].append(float(np.median(lat)))
+    finally:
+        upcat.upsample_concat = own
+    same = bool(np.array_equal(np.asarray(depth["old"]), np.asarray(depth["new"])))
+    check(same, "config 1 b1 depth differs between the two upsample_concat kernels")
+    out = {f"{who}_{stat}": float(f(frames[who])) for who in frames
+           for stat, f in (("median_ms", np.median), ("p90_ms", lambda v: np.percentile(v, 90)))}
+    out["new_minus_old_ms"] = float(np.median(np.subtract(rounds["new"], rounds["old"])))
+    out["same_depth"] = same
+    return out
+
+
+def measure_upcat(old_cu: str, runs: int) -> int:
+    """The --measure-upcat mode: the upsample_concat forward kernel against
+    the one in ``old_cu``, as the module docstring says."""
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    from scenedepthestimation_tpu_torch.ops.cuda import _build
+    from scenedepthestimation_tpu_torch.ops.cuda import upsample_concat as upcat
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    here = os.path.dirname(os.path.abspath(__file__))
+    old = _old_upcat(_build, upcat,
+                     old_cu if os.path.isabs(old_cu) else os.path.join(here, old_cu))
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    turns = (("old", old), ("new", upcat.upsample_concat), ("new", upcat.upsample_concat),
+             ("old", old))
+    keys = ("ms", "device_ms", "kernel_ms")
+    paths = []
+    for path, dtype, b, shapes in UPCAT_MEASURE:
+        total = {"bound_ms": 0.0, "copy_kernel_ms": 0.0, "old_host_us": 0.0, "new_host_us": 0.0,
+                 "new_minus_old_host_us": 0.0,
+                 **{f"{who}_{k}": [0.0, 0.0] for who in ("old", "new") for k in keys}}
+        rows = []
+        for name, h, w, c1, c2 in shapes:
+            def make():
+                x = torch.empty((b, h, w, c1), dtype=dtype, device="cuda").normal_(generator=gen)
+                s = torch.empty((b, 2 * h, 2 * w, c2), dtype=dtype, device="cuda")
+                return x, s.normal_(generator=gen)
+
+            first = make()
+            moved = _upcat_bytes(*first)
+            sets = _cold_sets(first, make, moved)
+            want = upcat.upsample_concat_plain(*first)
+            exact = {who: torch.equal(fn(*first), want) for who, fn in turns[:2]}
+            check(all(exact.values()), f"[upcat measure] {path} {name}: {exact}")
+            del want
+            plan = upcat.upsample_concat_plan(b, h, w, c1, c2, first[0].element_size())
+            row = {"name": name, "x": [b, h, w, c1], "c2": c2, "sets": len(sets),
+                   "bound_ms": bound_ms(moved, 0, "bf16")[0], "unit": plan.unit,
+                   "blocks": plan.nseg * plan.grid_y, "wb": plan.wb}
+            seen = {"old": 0, "new": 0}
+            for who, fn in turns:
+                call = _cycling(fn, sets)
+                t = {"ms": time_ms(call, runs=runs), "device_ms": _queued_ms(call, runs=runs),
+                     "kernel_ms": _checked_kernel_time(call, 1, f"upcat {who} {name}", runs)[0]}
+                for k in keys:
+                    row.setdefault(f"{who}_{k}", []).append(t[k])
+                    acc = total[f"{who}_{k}"]
+                    acc[seen[who]] = None if acc[seen[who]] is None or t[k] is None \
+                        else acc[seen[who]] + t[k]
+                seen[who] += 1
+            host = _host_us({who: _cycling(fn, sets) for who, fn in turns[:2]})
+            row["host_us"] = host
+            for k in ("old", "new", "new_minus_old"):
+                total[f"{k}_host_us"] += host[k]
+
+            def pair():
+                return tuple(torch.empty((b, 2 * h, 2 * w, c1 + c2), dtype=dtype, device="cuda")
+                             for _ in range(2))
+
+            first_pair = pair()
+            copies = _cold_sets(first_pair, pair, 2 * nbytes(first_pair[0]))
+            copy = _cycling(lambda dst, src: dst.copy_(src), copies)
+            row["copy_kernel_ms"] = _checked_kernel_time(copy, 1, f"copy_ {name}", runs)[0]
+            row["copy_device_ms"] = _queued_ms(copy, runs=runs)
+            total["bound_ms"] += row["bound_ms"]
+            total["copy_kernel_ms"] = (None if row["copy_kernel_ms"] is None
+                                       or total["copy_kernel_ms"] is None
+                                       else total["copy_kernel_ms"] + row["copy_kernel_ms"])
+            share = {k: [None if v is None else row["bound_ms"] / v for v in row[k]]
+                     for k in row if k.endswith("kernel_ms") and isinstance(row[k], list)}
+            print(f"[upcat measure] {path} {name} x {(b, h, w, c1)} + C2 {c2} {str(dtype)[6:]}: "
+                  f"bound {row['bound_ms']:.4f} ms (bytes); unit {plan.unit} B, {row['blocks']} "
+                  f"blocks of {plan.wb} px; in turns old/new/new/old: by call "
+                  f"{row['old_ms'][0]:.4f}/{row['new_ms'][0]:.4f}/{row['new_ms'][1]:.4f}/"
+                  f"{row['old_ms'][1]:.4f}, device {row['old_device_ms'][0]:.4f}/"
+                  f"{row['new_device_ms'][0]:.4f}/{row['new_device_ms'][1]:.4f}/"
+                  f"{row['old_device_ms'][1]:.4f}, kernel {row['old_kernel_ms']}/"
+                  f"{row['new_kernel_ms']} ms; host a call (median of {HOST_ROUNDS} rounds in "
+                  f"turns) old {host['old']:.2f}, new {host['new']:.2f}, new - old "
+                  f"{host['new_minus_old']:.2f} us; bound / kernel time {share}; "
+                  f"copy_ of the output's size: kernel {row['copy_kernel_ms']} ms, device "
+                  f"{row['copy_device_ms']:.4f} ms", flush=True)
+            rows.append(row)
+            del first, sets, first_pair, copies
+            torch.cuda.empty_cache()
+        print(f"[upcat measure] {path} sums: {json.dumps(total)}", flush=True)
+        paths.append({"path": path, "dtype": str(dtype)[6:], "batch": b, "total": total,
+                      "joins": rows})
+    b1 = _b1_turns(_build, upcat, old)
+    print(f"[upcat measure] config 1 b1 predict_mono, {B1_ROUNDS} rounds of {B1_FRAMES} frames "
+          f"in turns: {json.dumps(b1)}", flush=True)
+    print(json.dumps({"nvidia_smi": smi, "runs": runs, "paths": paths, "b1_predict": b1}))
+    return 0
+
+
 def main() -> int:
+    # Phase 20's deterministic GEMMs (_deterministic) need the cuBLAS
+    # workspace named before the process's first GEMM; 8 buffers of 4 MiB is
+    # the 32 MiB that PyTorch takes by default on Hopper.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     modes = {"--measure": (measure, 200), "--measure-b1": (measure_b1, 200),
              "--measure-train": (measure_train, 10),
              "--measure-stereo-train": (measure_stereo_train, 20),
              "--measure-gram-bwd": (measure_gram_bwd, RUNS),
-             "--measure-conv-bwd": (measure_conv_bwd, BF16_MONO_RUNS)}
+             "--measure-conv-bwd": (measure_conv_bwd, BF16_MONO_RUNS),
+             "--measure-upcat": (measure_upcat, UPCAT_RUNS)}
     if sys.argv[1:2] and sys.argv[1] in modes:
         fn, default = modes[sys.argv[1]]
         rest = sys.argv[2:]
-        return fn(rest[0] if rest else os.path.dirname(os.path.abspath(__file__)),
-                  int(rest[1]) if len(rest) > 1 else default)
+        first = OLD_UPCAT_CU if fn is measure_upcat else os.path.dirname(os.path.abspath(__file__))
+        return fn(rest[0] if rest else first, int(rest[1]) if len(rest) > 1 else default)
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     import scenedepthestimation_tpu_torch as sdt
     from scenedepthestimation_tpu_torch import benchmark, cli, serve

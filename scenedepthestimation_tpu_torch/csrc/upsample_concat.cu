@@ -4,15 +4,33 @@
 // upsample_concat.py::upsample_concat_pallas (the decoder's skip join).
 //
 // What bounds it on an H100: it is pure data movement, so device-memory
-// bytes. Each output element is written exactly once, each skip element is
-// read once, and each x element is read four times, mostly from L2.
+// bytes: x and skip read once, the output (4|x| + |skip|) written once.
 //
-// Design: one thread per 16-byte vector of output, in a grid-stride loop.
-// When both channel widths are whole 16-byte vectors and every pointer is
-// 16-byte aligned, a vector never straddles the x/skip boundary and each
-// thread moves one uint4; otherwise the same loop moves single elements.
-// The kernel only copies bits, so one instantiation per element size
-// serves fp32 and bf16.
+// Design (upsample_concat_kernel): a block takes one input row r = b*H + h
+// of x, or a segment of wb of its pixels, and writes the same pixels of
+// output rows 2r and 2r + 1. It first copies the segment of x's row into
+// shared memory (each x vector is read from device memory once), then
+// walks the segment's output in order: neighbouring threads store
+// neighbouring 16-byte vectors, so each warp writes 512 contiguous bytes,
+// taking each vector from the staged x (read four times, from shared
+// memory) or from skip's rows 2r and 2r + 1 (read once, in order); each
+// thread has kUnroll independent loads in flight before its stores, and
+// its first skip loads wait together with the staging of x. The
+// block computes its row bases once in 64 bits; every in-segment index and
+// offset is 32-bit (upsample_concat_plan in ops/cuda/upsample_concat.py
+// keeps 4 * wb * (v1 + v2) below 2^31), and the one division an output
+// index needs, by the pixel's width in vectors v1 + v2 (not a power of
+// two: the mono decoder's /2 join has 4 + 8 bf16 vectors a pixel), is a
+// multiply-high by a constant that the plan computes on the host
+// (FastDiv). A segment holds about one pass of the block's threads (512
+// units). Rows beyond the grid's 65,535 are walked by a stride. The
+// unit of the copy is the widest of 16, 8, 4 or 2 bytes that divides both
+// channel widths and all three pointers, so a width off 16 bytes or a
+// pointer off 16-byte alignment takes narrower vectors on the same
+// scheme. A pixel of x wider than the plan's staging limit (16 KB: more
+// than 4,096 fp32 channels) is read from device memory where the output
+// needs it instead. The kernel only copies bits, so one instantiation per
+// unit serves fp32 and bf16.
 //
 // The backward (sde_upsample_concat_bwd), fp32 or bf16: with g the
 // gradient of the output, dx is the sum of g's 2x2 block over x's channels
@@ -32,43 +50,131 @@
 namespace sde {
 namespace {
 
-// out (B, 2H, 2W, c1 + c2) in units of E: the first c1 of each output
-// pixel come from x (B, H, W, c1) at (h/2, w/2), the last c2 from skip
-// (B, 2H, 2W, c2) at the same pixel.
-template <typename E>
-__global__ void upsample_concat_kernel(const E* __restrict__ x,
-                                       const E* __restrict__ skip,
-                                       E* __restrict__ out, int H, int W,
-                                       int c1, int c2, long long total) {
-  const int ct = c1 + c2;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    const int c = static_cast<int>(i % ct);
-    const long long pix = i / ct;
-    const int ow = static_cast<int>(pix % (2 * W));
-    const long long t = pix / (2 * W);
-    const int oh = static_cast<int>(t % (2 * H));
-    const long long b = t / (2 * H);
-    out[i] = c < c1 ? x[((b * H + (oh >> 1)) * W + (ow >> 1)) * c1 + c]
-                    : skip[pix * c2 + (c - c1)];
+constexpr int kUpThreads = 256;  // threads a block of the forward
+constexpr int kUnroll = 2;       // loads a thread has in flight before its stores
+
+// n / d for a 32-bit n and a divisor d >= 1, by Granlund and Montgomery's
+// round-up multiplier: with l = ceil(log2 d) and m = floor(2^32 (2^l - d)
+// / d) + 1 (upsample_concat_plan computes both on the host), t =
+// umulhi(n, m) and n / d = (t + ((n - t) >> min(l, 1))) >> max(l - 1, 0).
+// A power of two has m = 1, so t = 0 and the quotient is n >> l.
+struct FastDiv {
+  unsigned m;
+  int s1, s2;
+  __device__ __forceinline__ FastDiv(unsigned mul, int l)
+      : m(mul), s1(l > 0 ? 1 : 0), s2(l > 0 ? l - 1 : 0) {}
+  __device__ __forceinline__ unsigned operator()(unsigned n) const {
+    const unsigned t = __umulhi(n, m);
+    return (t + ((n - t) >> s1)) >> s2;
+  }
+};
+
+// out (B, 2H, 2W, v1 + v2), x (B, H, W, v1) and skip (B, 2H, 2W, v2) in
+// units of V; rows = B * H. Block (s, y) takes pixels [s * wb, s * wb +
+// wn) of x's rows y, y + gridDim.y, ...; kStaged: through wn * v1 units of
+// dynamic shared memory.
+template <typename V, bool kStaged>
+__global__ void __launch_bounds__(kUpThreads)
+    upsample_concat_kernel(const V* __restrict__ x, const V* __restrict__ skip,
+                           V* __restrict__ out, long long rows, int W, int wb, int v1, int v2,
+                           unsigned mul, int shift) {
+  extern __shared__ __align__(16) unsigned char staged[];
+  V* xs = reinterpret_cast<V*>(staged);
+  const FastDiv div(mul, shift);  // by vt
+  const unsigned vt = v1 + v2;
+  const int w0 = blockIdx.x * wb;
+  const unsigned wn = min(wb, W - w0);
+  const unsigned nx = wn * v1;       // x units of the segment
+  const unsigned row = 2 * wn * vt;  // output units of the segment in one row
+  for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
+    // The row bases: x's row r from pixel w0, and output rows 2r and 2r + 1
+    // (skip's too) from pixel 2 * w0.
+    const long long pix = 2 * (2 * r * W + w0);
+    const V* xr = x + (r * W + w0) * v1;
+    const V* s0 = skip + pix * v2;
+    V* o0 = out + pix * vt;
+    const long long skip_step = 2LL * W * v2, out_step = 2LL * W * vt;
+    // Each thread takes outputs i0 + u * kUpThreads (u < kUnroll), then the
+    // next kUnroll * kUpThreads. locate() finds where an output's unit comes
+    // from: x at xr + off (staged: xs[off]) or skip at row 2r or 2r + 1, +
+    // off. The first outputs' skip loads are issued before x is staged, so
+    // that the two waits overlap.
+    V val[kUnroll];
+    unsigned at[kUnroll], off[kUnroll];
+    bool odd[kUnroll], from_x[kUnroll];
+    unsigned i0 = threadIdx.x;
+    const auto locate = [&](int u) {
+      const unsigned i = i0 + u * kUpThreads;
+      odd[u] = i >= row;
+      at[u] = odd[u] ? i - row : i;
+      const unsigned p = div(at[u]);
+      const unsigned c = at[u] - p * vt;
+      from_x[u] = c < static_cast<unsigned>(v1);
+      off[u] = from_x[u] ? (p >> 1) * v1 + c : p * v2 + (c - v1);
+    };
+    const auto live = [&](int u) { return i0 + u * kUpThreads < 2 * row; };
+    const auto load = [&]() {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (!live(u)) continue;
+        locate(u);
+        if (!from_x[u])
+          val[u] = __ldg(s0 + (odd[u] ? skip_step : 0) + off[u]);
+        else if (!kStaged)
+          val[u] = __ldg(xr + off[u]);
+      }
+    };
+    load();
+    if (kStaged) {
+      if (r != blockIdx.y) __syncthreads();  // the last row's reads of xs are done
+#pragma unroll 4
+      for (unsigned j = threadIdx.x; j < nx; j += kUpThreads) xs[j] = __ldg(xr + j);
+      __syncthreads();
+    }
+    while (true) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (!live(u)) continue;
+        if (kStaged && from_x[u]) val[u] = xs[off[u]];
+        o0[(odd[u] ? out_step : 0) + at[u]] = val[u];
+      }
+      i0 += kUnroll * kUpThreads;
+      if (i0 >= 2 * row) break;
+      load();
+    }
   }
 }
 
-template <typename E>
-cudaError_t launch(const void* x, const void* skip, void* out, int B, int H,
-                   int W, int c1, int c2, cudaStream_t stream) {
-  const long long total = (long long)B * 2 * H * 2 * W * (c1 + c2);
-  if (total == 0) return cudaGetLastError();
-  constexpr int kThreads = 256;
-  const long long blocks =
-      std::min<long long>((total + kThreads - 1) / kThreads, 1 << 20);
-  upsample_concat_kernel<E><<<static_cast<unsigned>(blocks), kThreads, 0,
-                              stream>>>(static_cast<const E*>(x),
-                                        static_cast<const E*>(skip),
-                                        static_cast<E*>(out), H, W, c1, c2,
-                                        total);
+template <typename V>
+cudaError_t launch(const void* x, const void* skip, void* out, long long rows, int W, int wb,
+                   int nseg, int grid_y, int v1, int v2, unsigned mul, int shift, int staged,
+                   cudaStream_t stream) {
+  const dim3 grid(nseg, grid_y);
+  if (staged > 0)
+    upsample_concat_kernel<V, true><<<grid, kUpThreads, staged, stream>>>(
+        static_cast<const V*>(x), static_cast<const V*>(skip), static_cast<V*>(out), rows, W, wb,
+        v1, v2, mul, shift);
+  else
+    upsample_concat_kernel<V, false><<<grid, kUpThreads, 0, stream>>>(
+        static_cast<const V*>(x), static_cast<const V*>(skip), static_cast<V*>(out), rows, W, wb,
+        v1, v2, mul, shift);
   return cudaGetLastError();
+}
+
+// The host's FastDiv, to check a plan's constants before a launch.
+unsigned host_div(unsigned n, unsigned m, int l) {
+  const unsigned t = static_cast<unsigned>((static_cast<unsigned long long>(n) * m) >> 32);
+  return (t + ((n - t) >> (l > 0 ? 1 : 0))) >> (l > 0 ? l - 1 : 0);
+}
+
+// Whether (m, l) divides by d over [0, n_max]: checked at d - 1, d, the
+// largest multiple of d up to n_max and n_max.
+bool divisor_ok(unsigned d, unsigned m, int l, unsigned n_max) {
+  if (d == 0 || l < 0 || l > 31) return false;
+  const unsigned top = n_max / d * d;
+  for (unsigned n : {d - 1, d, top, top - 1, n_max})
+    if (n <= n_max && host_div(n, m, l) != n / d) return false;
+  return true;
 }
 
 // N elements of T moved as one E: widen() to fp32, narrow() rounds once.
@@ -187,26 +293,54 @@ bool aligned16(const void* p) {
 }  // namespace sde
 
 // x (B, H, W, C1), skip (B, 2H, 2W, C2), out (B, 2H, 2W, C1 + C2), all
-// contiguous, all of one dtype whose element is `esize` bytes (2 or 4).
+// contiguous and of one dtype, launched as plan[0..12] says, the fields of
+// upsample_concat_plan (ops/cuda/upsample_concat.py) in its order: the unit
+// of the copy in bytes (16, 8, 4 or 2; every pointer aligned to it), v1 =
+// C1 and v2 = C2 in units, rows = B * H, W, segments of wb pixels (nseg =
+// ceil(W / wb) of them a row), grid_y row strides, the kernel's
+// compile-time threads and unroll (refused unless they match), the
+// multiplier and shift of the division by v1 + v2, and the shared memory
+// that stages a segment of x (wb * v1 units, or 0: x read where needed).
 extern "C" int sde_upsample_concat(const void* x, const void* skip, void* out,
-                                   int B, int H, int W, int C1, int C2,
-                                   int esize, int device, void* stream) {
+                                   const long long* plan, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const long long unit = plan[0], v1 = plan[1], v2 = plan[2], rows = plan[3], W = plan[4],
+                  wb = plan[5], nseg = plan[6], grid_y = plan[7], mul = plan[10],
+                  shift = plan[11], staged = plan[12];
+  const auto aligned = [unit](const void* p) {
+    return (reinterpret_cast<std::uintptr_t>(p) & (unit - 1)) == 0;
+  };
+  const long long seg = 4 * wb * (v1 + v2);
+  const bool ok = (unit == 16 || unit == 8 || unit == 4 || unit == 2) && aligned(x) &&
+                  aligned(skip) && aligned(out) && rows > 0 && W > 0 && W < (1LL << 31) &&
+                  v1 >= 0 && v2 >= 0 && v1 + v2 > 0 && wb > 0 && nseg > 0 &&
+                  (nseg - 1) * wb < W && nseg * wb >= W && grid_y > 0 && grid_y <= 65535 &&
+                  grid_y <= rows && seg < (1LL << 31) && (staged == 0 || staged == wb * v1 * unit) &&
+                  staged <= 48 * 1024 && plan[8] == sde::kUpThreads && plan[9] == sde::kUnroll &&
+                  mul > 0 && mul < (1LL << 32) &&
+                  sde::divisor_ok(static_cast<unsigned>(v1 + v2), static_cast<unsigned>(mul),
+                                  static_cast<int>(shift), static_cast<unsigned>(seg));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = (C1 * esize) % 16 == 0 && (C2 * esize) % 16 == 0 &&
-                   sde::aligned16(x) && sde::aligned16(skip) &&
-                   sde::aligned16(out);
-  if (vec)
-    err = sde::launch<uint4>(x, skip, out, B, H, W, C1 * esize / 16,
-                             C2 * esize / 16, s);
-  else if (esize == 4)
-    err = sde::launch<std::uint32_t>(x, skip, out, B, H, W, C1, C2, s);
-  else if (esize == 2)
-    err = sde::launch<std::uint16_t>(x, skip, out, B, H, W, C1, C2, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  const int a[] = {static_cast<int>(W), static_cast<int>(wb), static_cast<int>(nseg),
+                   static_cast<int>(grid_y), static_cast<int>(v1), static_cast<int>(v2),
+                   static_cast<int>(shift), static_cast<int>(staged)};
+  const unsigned m = static_cast<unsigned>(mul);
+  switch (unit) {
+    case 16:
+      return static_cast<int>(sde::launch<uint4>(x, skip, out, rows, a[0], a[1], a[2], a[3], a[4],
+                                                 a[5], m, a[6], a[7], s));
+    case 8:
+      return static_cast<int>(sde::launch<uint2>(x, skip, out, rows, a[0], a[1], a[2], a[3], a[4],
+                                                 a[5], m, a[6], a[7], s));
+    case 4:
+      return static_cast<int>(sde::launch<std::uint32_t>(x, skip, out, rows, a[0], a[1], a[2],
+                                                         a[3], a[4], a[5], m, a[6], a[7], s));
+    default:
+      return static_cast<int>(sde::launch<std::uint16_t>(x, skip, out, rows, a[0], a[1], a[2],
+                                                         a[3], a[4], a[5], m, a[6], a[7], s));
+  }
 }
 
 // g (B, 2H, 2W, C1 + C2), dx (B, H, W, C1), dskip (B, 2H, 2W, C2), all

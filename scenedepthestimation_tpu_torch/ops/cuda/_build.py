@@ -107,8 +107,9 @@ _SIGNATURES = {
     # dpre, x, dw, db, workspace, ws_elems, B, H, W, Cin, Cout, border, dtype,
     # device, stream
     "sde_conv3x3_bwd_dw": (_P,) * 5 + (_L,) + (_I,) * 8 + (_P,),
-    # x, skip, out, B, H, W, C1, C2, esize, device, stream
-    "sde_upsample_concat": (_P, _P, _P) + (_I,) * 7 + (_P,),
+    # x, skip, out, plan (13 long long: upsample_concat_plan's fields),
+    # device, stream
+    "sde_upsample_concat": (_P, _P, _P, ctypes.POINTER(_L), _I, _P),
     # g, dx, dskip, B, H, W, C1, C2, dtype, device, stream
     "sde_upsample_concat_bwd": (_P, _P, _P) + (_I,) * 7 + (_P,),
     # fl, fl batch stride, fr, fr batch stride, out, B, H, W, C, D, td,

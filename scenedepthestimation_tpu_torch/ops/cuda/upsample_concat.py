@@ -3,7 +3,10 @@
 Kernel 2 of the port, ``csrc/upsample_concat.cu``: the counterpart of the
 TPU kernel ``scenedepthestimation_tpu/ops/pallas/upsample_concat.py::
 upsample_concat_pallas``. :func:`upsample_concat` launches it for a CUDA
-tensor and takes :func:`upsample_concat_plain` for a CPU tensor.
+tensor and takes :func:`upsample_concat_plain` for a CPU tensor. Every
+integer of a launch (the unit of the copy, the widths in units, the row
+segments, the grid and the divisors' constants) comes from
+:func:`upsample_concat_plan`, which the CPU tests replay.
 
 The backward is the kernel ``sde_upsample_concat_bwd`` in the same source
 (:func:`upsample_concat_backward`, fp32 or bf16), registered as the op's
@@ -15,7 +18,9 @@ It replaces what XLA derives for the JAX package's
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -46,11 +51,110 @@ def upsample_concat_plain(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
     return torch.cat([up, skip], dim=-1)
 
 
+# The forward kernel's compile-time threads a block and loads in flight a
+# thread (kUpThreads, kUnroll in csrc/upsample_concat.cu; the C entry
+# refuses other values).
+THREADS = 256
+UNROLL = 2
+# A row segment holds about one pass of its block's threads: ITEMS output
+# units, or one pixel where a pixel holds more.
+ITEMS = THREADS * UNROLL
+GRID_Y_MAX = 65535
+# Every in-segment index and offset of the kernel is 32-bit: 4 * wb * (v1 +
+# v2) stays below this.
+SEGMENT_LIMIT = 2**31
+# A segment's x is staged in shared memory up to this many bytes (always,
+# but for a pixel of x wider than it).
+STAGE_LIMIT = 16 * 1024
+
+
+class UpcatPlan(NamedTuple):
+    """A launch of the forward kernel: the unit of the copy in bytes, x's
+    and skip's widths ``v1``, ``v2`` in units, ``rows`` = B * H input rows of
+    ``w`` pixels cut into ``nseg`` segments of ``wb`` pixels (the last one
+    shorter), the grid (nseg, grid_y) of ``threads``-thread blocks that
+    walk rows y, y + grid_y, ..., each thread with ``unroll`` loads in
+    flight, (mul, shift) of the division by v1 + v2, and the bytes of
+    shared memory that stage a segment of x (0: x read where needed)."""
+
+    unit: int
+    v1: int
+    v2: int
+    rows: int
+    w: int
+    wb: int
+    nseg: int
+    grid_y: int
+    threads: int
+    unroll: int
+    mul: int
+    shift: int
+    staged: int
+
+
+def fast_divisor(d: int) -> Tuple[int, int]:
+    """(m, l) with which the kernel divides a 32-bit n by d >= 1:
+    l = ceil(log2 d), m = floor(2^32 (2^l - d) / d) + 1, and n // d =
+    (t + ((n - t) >> min(l, 1))) >> max(l - 1, 0) for t = (n * m) >> 32
+    (Granlund and Montgomery). d = 0 (an empty width, never divided by)
+    gives (1, 0)."""
+    if d <= 1:
+        return 1, 0
+    shift = (d - 1).bit_length()
+    return (((1 << 32) * ((1 << shift) - d)) // d) + 1, shift
+
+
+def upsample_concat_plan(b: int, h: int, w: int, c1: int, c2: int, esize: int,
+                         align: int = 16) -> UpcatPlan:
+    """The forward kernel's launch for x (b, h, w, c1) and skip (b, 2h, 2w,
+    c2) of ``esize``-byte elements whose three data pointers are all
+    aligned to ``align`` bytes (a power of two): the unit is the widest of
+    16, 8, 4 and 2 bytes, and no narrower than an element, that divides
+    both channel widths in bytes and ``align``; a segment holds about
+    ITEMS output units. Raises on an empty output, a pointer off its
+    element's alignment, or a pixel too wide for 32-bit in-segment
+    offsets."""
+    if min(b, h, w) <= 0 or c1 < 0 or c2 < 0 or c1 + c2 == 0:
+        raise ValueError(f"upsample_concat_plan takes a non-empty output, not {(b, h, w, c1, c2)}")
+    if esize not in (2, 4) or align % esize:
+        raise ValueError(f"{esize}-byte elements at a {align}-byte alignment")
+    unit = 16
+    while unit > esize and ((c1 * esize) % unit or (c2 * esize) % unit or align % unit):
+        unit //= 2
+    v1, v2 = c1 * esize // unit, c2 * esize // unit
+    vt, rows = v1 + v2, b * h
+    wb = min(max(ITEMS // (4 * vt), 1), w)
+    nseg = -(-w // wb)
+    wb = -(-w // nseg)
+    if 4 * wb * vt >= SEGMENT_LIMIT:
+        raise ValueError(f"a pixel of {c1} + {c2} channels is too wide for upsample_concat")
+    staged = wb * v1 * unit
+    mul, shift = fast_divisor(vt)
+    return UpcatPlan(unit, v1, v2, rows, w, wb, nseg, min(rows, GRID_Y_MAX), THREADS, UNROLL,
+                     mul, shift, staged if staged <= STAGE_LIMIT else 0)
+
+
+def _alignment(a: int, b: int = 0, c: int = 0) -> int:
+    """The largest power of two up to 16 that divides the pointers a, b
+    and c."""
+    bits = a | b | c | 16
+    return bits & -bits
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_array(b: int, h: int, w: int, c1: int, c2: int, esize: int, low: int) -> ctypes.Array:
+    """upsample_concat_plan's fields, as the C entry reads them, for
+    pointers whose low four bits OR to ``low``: the launch's one lookup on
+    the host."""
+    plan = upsample_concat_plan(b, h, w, c1, c2, esize, _alignment(low))
+    return (ctypes.c_longlong * len(plan))(*plan)
+
+
 def _upsample_concat(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
     """The body of :func:`upsample_concat`, and the implementation of its op."""
-    if x.device.type == "cpu":
-        return upsample_concat_plain(x, skip)
-    if x.device.type != "cuda":
+    if not x.is_cuda:  # is_cuda costs the host less than device.type on every launch
+        if x.device.type == "cpu":
+            return upsample_concat_plain(x, skip)
         raise ValueError(f"upsample_concat runs on cpu or cuda, not {x.device}")
     _check(x, skip)
     if skip.device != x.device:
@@ -65,9 +169,10 @@ def _upsample_concat(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, 2 * h, 2 * w, c1 + c2), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    p0, p1, p2 = x.data_ptr(), skip.data_ptr(), out.data_ptr()
     err = _build.lib().sde_upsample_concat(
-        x.data_ptr(), skip.data_ptr(), out.data_ptr(),
-        b, h, w, c1, c2, esize, x.device.index, _build.stream_of(x),
+        p0, p1, p2, _plan_array(b, h, w, c1, c2, esize, (p0 | p1 | p2) & 15),
+        x.get_device(), _build.stream_of(x),
     )
     _build.check(err, "upsample_concat")
     _build.LAUNCHES["upsample_concat"] += 1

@@ -769,3 +769,247 @@ def test_tail_slab_layout_feeds_the_plain_tail(c1, c0, c0o):
     read01 = m01[:, :c0o, :c0].reshape(3, 3, c0o, c0).permute(2, 3, 0, 1)
     want = fused_tail.fused_tail_plain(*args)
     assert torch.equal(fused_tail.fused_tail_plain(args[0], read00, args[2], read01, args[4]), want)
+
+
+# ---------------------------------------------------------------------------
+# The upsample_concat kernel's launch plan, replayed in numpy: the index
+# arithmetic of csrc/upsample_concat.cu's upsample_concat_kernel (64-bit row
+# bases, 32-bit in-segment offsets, the multiply-high divisions), from
+# upsample_concat_plan's numbers.
+# ---------------------------------------------------------------------------
+
+_U64 = np.uint64
+
+
+def _fastdiv(n, mul: int, shift: int):
+    """The kernel's FastDiv on uint64 arrays of 32-bit values."""
+    t = (n * _U64(mul)) >> _U64(32)
+    return (t + ((n - t) >> _U64(min(shift, 1)))) >> _U64(max(shift - 1, 0))
+
+
+def _indices(plan, n: int, step: int) -> np.ndarray:
+    """The indices below n that a block's threads take, as uint64: j0 =
+    tid, tid + step, ... while j0 < n, and j0 + k * threads for k below
+    step / threads while below n."""
+    t = plan.threads
+    j0 = np.arange(t)[None, :] + np.arange(0, max(n, 1), step)[:, None]
+    j = (j0[..., None] + t * np.arange(step // t)).astype(np.int64)
+    return j[(j0[..., None] < n) & (j < n)].astype(_U64)
+
+
+def _segment_moves(plan, s: int):
+    """The moves of segment s of any row, as the block's threads make them
+    with 32-bit in-segment arithmetic (each value checked to stay below
+    2^31): the x units the staging loop loads, and for each output unit of
+    the segment its offset from the row base (``at``), whether it lies in
+    output row 2r + 1, and its source: an x offset from the row base, or a
+    skip offset (-1 where the other applies)."""
+    w0 = s * plan.wb
+    wn = min(plan.wb, plan.w - w0)
+    vt = plan.v1 + plan.v2
+    nx, row = wn * plan.v1, 2 * wn * vt
+    assert 2 * row < 2**31
+    staged = _indices(plan, nx, plan.threads) if plan.staged else np.zeros(0, _U64)
+    i = _indices(plan, 2 * row, plan.unroll * plan.threads)
+    odd = i >= row
+    at = np.where(odd, i - _U64(row), i)
+    p = _fastdiv(at, plan.mul, plan.shift)
+    c = at - p * _U64(vt)
+    from_x = c < plan.v1
+    xj = np.where(from_x, (p >> _U64(1)) * _U64(plan.v1) + c, 0)
+    sk = p * _U64(plan.v2) + np.where(from_x, _U64(0), c - _U64(plan.v1))
+    for a in (i, at, p * _U64(vt), xj, sk):
+        assert a.size == 0 or int(a.max()) < 2**31
+    xj, sk = (np.where(m, v.astype(np.int64), -1) for m, v in ((from_x, xj), (~from_x, sk)))
+    return w0, staged.astype(np.int64), at.astype(np.int64), odd, xj, sk
+
+
+def _row_bases(plan, rows, w0: int, dtype=np.int64):
+    """The block's row bases in ``dtype``: x's row r from pixel w0, skip's and
+    the output's rows 2r and 2r + 1 from pixel 2 * w0 (units)."""
+    r = np.asarray(rows, dtype)
+    big_w, v1, v2 = dtype(plan.w), dtype(plan.v1), dtype(plan.v2)
+    vt = dtype(plan.v1 + plan.v2)
+    pix = dtype(2) * (dtype(2) * r * big_w + dtype(w0))
+    xr = (r * big_w + dtype(w0)) * v1
+    s0, o0 = pix * v2, pix * vt
+    return xr, s0, s0 + dtype(2) * big_w * v2, o0, o0 + dtype(2) * big_w * vt
+
+
+def _block_rows(plan) -> np.ndarray:
+    """The rows in the order the blocks of one grid column walk them: block y
+    takes y, y + grid_y, ..."""
+    r = np.arange(plan.grid_y)[:, None] + plan.grid_y * np.arange(-(-plan.rows // plan.grid_y))
+    return r[r < plan.rows]
+
+
+def _emulated_moves(plan, rows=None):
+    """(destination, source, x loads from device memory) of the launch: the
+    output unit index of every store, its source as an index into x's units
+    or as len(x's units) + an index into skip's units, and the x unit
+    index of every load of x from device memory (the staging loop's, or
+    the output loop's where the plan stages nothing)."""
+    rows = _block_rows(plan) if rows is None else np.asarray(rows)
+    nx_units = plan.rows * plan.w * plan.v1
+    dsts, srcs, x_loads = [], [], []
+    for s in range(plan.nseg):
+        w0, staged, at, odd, xj, sk = _segment_moves(plan, s)
+        xr, s0, s1, o0, o1 = (b[:, None] for b in _row_bases(plan, rows, w0))
+        dsts.append(np.where(odd, o1, o0) + at)
+        srcs.append(np.where(xj >= 0, xr + xj, nx_units + np.where(odd, s1, s0) + sk))
+        x_loads.append(xr + (staged if plan.staged else xj[xj >= 0]))
+    return tuple(np.concatenate([a.ravel() for a in arrays]) for arrays in (dsts, srcs, x_loads))
+
+
+def _upcat_data(rng, b, h, w, c1, c2, dtype):
+    """x and skip as torch tensors of ``dtype`` from normal numpy draws."""
+    x = torch.from_numpy(rng.normal(size=(b, h, w, c1)).astype(np.float32)).to(dtype)
+    skip = torch.from_numpy(rng.normal(size=(b, 2 * h, 2 * w, c2)).astype(np.float32)).to(dtype)
+    return x, skip
+
+
+def _as_units(t: torch.Tensor, unit: int) -> np.ndarray:
+    """A tensor's bytes as rows of ``unit`` bytes."""
+    return t.contiguous().view(torch.uint8).numpy().reshape(-1, unit)
+
+
+# (b, h, w, c1, c2): the mono decoder's four joins and the stereo
+# aggregation's three, at small spatial sizes.
+_DECODER_JOINS = [(2, 3, 5, 256, 256), (2, 3, 5, 128, 128), (2, 3, 5, 64, 64), (2, 3, 5, 32, 64)]
+_STEREO_JOINS = [(2, 3, 5, 160, 128), (2, 3, 5, 128, 96), (2, 3, 5, 96, 64)]
+# (b, h, w, c1, c2, align): widths off 16 bytes (units of 8, 4 or one
+# element), pointers off 16-byte alignment ("element": a storage offset of
+# one element; 4 and 8 bytes), C1 != C2 at odd W, B*H above the grid's
+# 65,535 rows, a pixel wider than one pass of a block.
+_UPCAT_EDGES = [(2, 3, 5, 3, 5, 16), (1, 4, 6, 8, 4, 16), (2, 5, 3, 16, 24, 16),
+                (2, 3, 7, 6, 10, 16), (2, 3, 5, 64, 64, "element"), (2, 3, 5, 64, 64, 4),
+                (2, 3, 5, 64, 64, 8), (3, 4, 9, 24, 40, 16), (1100, 64, 2, 8, 8, 16),
+                (2, 3, 5, 640, 512, 16)]
+_UPCAT_CASES = ([(*s, 16) for s in _DECODER_JOINS + _STEREO_JOINS] + _UPCAT_EDGES)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,h,w,c1,c2,align", _UPCAT_CASES)
+def test_upsample_concat_plan_replay_writes_the_plain_output(b, h, w, c1, c2, align, dtype):
+    """The launch that upsample_concat_plan gives, replayed in numpy, moves
+    every output unit exactly once, from the x or skip unit that
+    upsample_concat_plain puts there: the outputs are equal bit for bit."""
+    esize = torch.empty(0, dtype=dtype).element_size()
+    align = esize if align == "element" else align
+    plan = upsample_concat.upsample_concat_plan(b, h, w, c1, c2, esize, align)
+    assert plan.unit <= align and plan.unit >= esize
+    assert (c1 * esize) % plan.unit == 0 and (c2 * esize) % plan.unit == 0
+    assert plan.grid_y == min(b * h, 65535) and (plan.nseg - 1) * plan.wb < w <= plan.nseg * plan.wb
+    x, skip = _upcat_data(np.random.default_rng(b * h + w + c1), b, h, w, c1, c2, dtype)
+    want = _as_units(upsample_concat.upsample_concat_plain(x, skip), plan.unit)
+    dst, src, x_loads = _emulated_moves(plan)
+    assert np.array_equal(np.bincount(dst, minlength=len(want)), np.ones(len(want), np.int64))
+    # Each x unit is read from device memory once (staged), each skip unit once.
+    n_x = b * h * w * c1 * esize // plan.unit
+    assert plan.staged == plan.wb * plan.v1 * plan.unit
+    np.testing.assert_array_equal(np.bincount(x_loads, minlength=n_x), np.ones(n_x, np.int64))
+    n_skip = np.bincount(src[src >= n_x] - n_x, minlength=len(want) - 4 * n_x)
+    np.testing.assert_array_equal(n_skip, np.ones(len(want) - 4 * n_x, np.int64))
+    got = np.empty_like(want)
+    got[dst] = np.concatenate([_as_units(x, plan.unit), _as_units(skip, plan.unit)])[src]
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("b,h,w,c1,c2", [(2, 3, 5, 32, 64), (2, 3, 5, 160, 128),
+                                         (2, 3, 7, 6, 10), (1, 4, 6, 8, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_upsample_concat_plan_replay_matches_the_pallas_kernel(b, h, w, c1, c2, dtype):
+    """At small cases the replayed launch also equals the JAX package's
+    upsample_concat_pallas (interpret mode) bit for bit."""
+    esize = torch.empty(0, dtype=dtype).element_size()
+    plan = upsample_concat.upsample_concat_plan(b, h, w, c1, c2, esize)
+    x, skip = _upcat_data(np.random.default_rng(c1 + c2), b, h, w, c1, c2, dtype)
+    dst, src, _ = _emulated_moves(plan)
+    out = np.empty((b * 4 * h * w * (c1 + c2) * esize // plan.unit, plan.unit), np.uint8)
+    out[dst] = np.concatenate([_as_units(x, plan.unit), _as_units(skip, plan.unit)])[src]
+    jx, js = (jnp.asarray(t.float().numpy()).astype(
+        jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32) for t in (x, skip))
+    want = np.asarray(upsample_concat_pallas(jx, js, interpret=True))
+    np.testing.assert_array_equal(out.reshape(-1).view(want.dtype), want.reshape(-1))
+
+
+def test_upsample_concat_plan_row_bases_are_64_bit():
+    """A bf16 output of 2^31 elements and more on the one-element unit (a
+    pointer off 4 bytes): the last rows' bases lie beyond 2^31 units, where
+    32-bit bases wrap, while every in-segment offset stays below 2^31. The
+    moves of the first and the last row of every segment land where the
+    output's layout puts each element, from the element it names."""
+    b, h, w, c1, c2 = 208, 96, 288, 32, 64
+    plan = upsample_concat.upsample_concat_plan(b, h, w, c1, c2, 2, align=2)
+    ct, n_out = c1 + c2, b * 4 * h * w * (c1 + c2)
+    assert plan.unit == 2 and n_out > 2**31
+    rows = [0, plan.rows - 1]
+    bases64 = np.stack(_row_bases(plan, rows, (plan.nseg - 1) * plan.wb))
+    with np.errstate(over="ignore"):
+        bases32 = np.stack(_row_bases(plan, rows, (plan.nseg - 1) * plan.wb, np.int32))
+    assert bases64.max() >= 2**31 and not np.array_equal(bases32.astype(np.int64), bases64)
+    dst, src, _ = _emulated_moves(plan, rows)
+    assert dst.max() < n_out and len(np.unique(dst)) == len(dst) == 2 * 4 * w * ct
+    pix, c = np.divmod(dst, ct)
+    row2, ow = np.divmod(pix, 2 * w)  # output row b * 2H + oh
+    assert set(row2 // 2) == set(rows)
+    nx_units = plan.rows * w * c1
+    want = np.where(c < c1, ((row2 // 2) * w + ow // 2) * c1 + c,
+                    nx_units + pix * c2 + (c - c1))
+    np.testing.assert_array_equal(src, want)
+
+
+@pytest.mark.parametrize("divisors", [range(1, 65), range(65, 130),
+                                      [160, 192, 255, 320, 1000, 4095, 65537, 2**20 + 7,
+                                       2**30 + 3, 2**31 - 1]], ids=["1-64", "65-129", "wide"])
+def test_upsample_concat_fast_divisor_is_exact(divisors):
+    """The kernel's multiply-high division by each d equals n // d over every
+    32-bit n tried: the ends of the range, the neighbours of multiples of d
+    and random draws."""
+    for d in divisors:
+        mul, shift = upsample_concat.fast_divisor(d)
+        assert 0 < mul < 2**32 and 0 <= shift <= 31, d
+        rng = np.random.default_rng(d)
+        mults = rng.integers(0, (2**32 - 1) // d + 1, size=2000, dtype=np.uint64) * _U64(d)
+        n = np.concatenate([mults, mults - _U64(1), mults + _U64(1),
+                            rng.integers(0, 2**32, size=2000, dtype=np.uint64),
+                            np.array([0, 1, d - 1, d, 2**31 - 1, 2**31, 2**32 - 1], np.uint64)])
+        n = n[n < _U64(2**32)]
+        np.testing.assert_array_equal(_fastdiv(n, mul, shift), n // _U64(d), err_msg=f"d = {d}")
+
+
+def test_upsample_concat_plan_refuses_what_the_kernel_cannot_take():
+    """An empty output, an element off its own alignment, a pixel too wide
+    for 32-bit in-segment offsets."""
+    plan = upsample_concat.upsample_concat_plan
+    with pytest.raises(ValueError, match="non-empty"):
+        plan(1, 0, 4, 8, 8, 2)
+    with pytest.raises(ValueError, match="alignment"):
+        plan(1, 2, 4, 8, 8, 4, align=2)
+    with pytest.raises(ValueError, match="too wide"):
+        plan(1, 1, 1, 2**28, 2**28, 2, align=2)
+    assert plan(1, 1, 1, 2**27, 2**27, 4).unit == 16
+
+
+@pytest.mark.parametrize("low,align", [(0, 16), (8, 8), (4, 4), (12, 4), (2, 2), (6, 2)])
+def test_upsample_concat_plan_array_takes_the_pointers_alignment(low, align):
+    """The launch argument that the wrapper caches holds upsample_concat_plan's
+    fields at the alignment that the pointers' low four bits OR to."""
+    got = upsample_concat._plan_array(2, 3, 5, 32, 64, 2, low)
+    assert list(got) == list(upsample_concat.upsample_concat_plan(2, 3, 5, 32, 64, 2, align))
+
+
+def test_upsample_concat_plan_reads_a_wide_x_where_needed():
+    """A pixel of x wider than the staging limit is not staged; the replayed
+    launch still writes the plain output, reading each x unit four times."""
+    b, h, w, c1, c2 = 1, 2, 3, 4608, 8
+    plan = upsample_concat.upsample_concat_plan(b, h, w, c1, c2, 4)
+    assert plan.staged == 0 and plan.wb == 1 and c1 * 4 > upsample_concat.STAGE_LIMIT
+    x, skip = _upcat_data(np.random.default_rng(0), b, h, w, c1, c2, torch.float32)
+    want = _as_units(upsample_concat.upsample_concat_plain(x, skip), plan.unit)
+    dst, src, x_loads = _emulated_moves(plan)
+    assert np.array_equal(np.bincount(dst, minlength=len(want)), np.ones(len(want), np.int64))
+    assert np.array_equal(np.bincount(x_loads), np.full(b * h * w * c1 // 4, 4))
+    got = np.empty_like(want)
+    got[dst] = np.concatenate([_as_units(x, plan.unit), _as_units(skip, plan.unit)])[src]
+    np.testing.assert_array_equal(got, want)
